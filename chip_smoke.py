@@ -1,0 +1,482 @@
+"""Smoke run of the torch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. build     - compile kernels B1 and B2 from ``src/repro_torch/kernels/csrc``;
+               print the card's name and power limit (``nvidia-smi``).
+2. kernels   - each kernel against its plain PyTorch version on the card, at
+               small shapes, float32 and float64, ragged row ranges/chunks.
+3. reference - the examples' own small configurations (quickstart N-body,
+               WaveSim 256 x 128) through the port on 2 x 2 against their
+               float64 numpy programs.
+4. nbody     - the Listing-1 N-body through ``repro_torch.core.Runtime`` on
+               2 nodes x 2 devices: 2^17 float32 bodies, 20 steps, held
+               against the same 20 steps run without the runtime.
+5. wavesim   - WaveSim on 2 x 2: an 8192 x 8192 float32 field, 50 steps,
+               held against 50 whole-field kernel steps without the runtime.
+               Phases 4 and 5 time their steps inside the run: the first
+               step (which also seeds the buffers on the card) and the
+               steps after it, each ended by ``rt.sync()``, then the gather.
+6. timing    - each kernel at the shapes phases 4 and 5 give it, by CUDA
+               events, beside its bound, its plain version and its error
+               against the plain version there.
+7. profile   - N-body (10 steps) and WaveSim (20 steps) again under
+               torch.profiler: the device's busy and idle share of the
+               run's wall time, and device time by kernel.
+8. the ``kernels`` summary line, then the device line.
+
+Phases 4 and 5 are the main path: every launch count is set to 0 just
+before each and read just after.
+
+Any failed phase exits non-zero.  Without a CUDA card the script exits 1
+before printing anything on standard output.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+NODES, DEVICES = 2, 2
+NBODY_N, NBODY_STEPS, DT, MASS = 1 << 17, 20, 1e-3, 1.0 / (1 << 17)
+WAVE_H = WAVE_W = 8192
+WAVE_STEPS, WAVE_C = 50, 0.25
+SEED = 11
+
+# kernel-versus-plain tolerances: |kernel - plain| <= atol + rtol * scale
+# B1: scale = sum_j |term_ij| (nbody_error_scale).  The kernel sums N f32
+#     terms in another order than torch, and rsqrtf is within 2 ulp where
+#     torch.rsqrt rounds correctly; the force may cancel to near zero, so
+#     the error is relative to the terms' magnitudes and not to the result.
+# B2: scale = |plain|.  The kernel's fused multiply-adds round once where
+#     torch rounds twice.
+TOL = {"nbody_forces_rows": dict(rtol=1e-4, atol=1e-6),
+       "wave_step_rows": dict(rtol=1e-5, atol=1e-5)}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def errors(got: torch.Tensor, exp: torch.Tensor, name: str,
+           scale: torch.Tensor | None = None) -> dict:
+    g, e = got.double(), exp.double()
+    diff = (g - e).abs()
+    scale = e.abs() if scale is None else scale.double()
+    tol = TOL[name]
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * scale).all())
+    rel = diff / scale.clamp_min(1e-30)
+    return dict(max_abs_err=float(diff.max()),
+                max_err_over_scale=float(rel.max()), ok=ok, **tol)
+
+
+def nbody_error_scale(p: torch.Tensor, lo: int, hi: int,
+                      soft: float = 1e-3) -> torch.Tensor:
+    """``sum_j |d_ij| / r_ij^3`` per row and component, in f32: the scale of
+    the rounding error of any f32 sum of B1's force terms, whatever its
+    order.  Rows go in blocks of 256 to bound the ``[rows, N, 3]``
+    temporaries."""
+    pa = p.float()
+    out = torch.empty((hi - lo, 3), device=p.device)
+    for b in range(lo, hi, 256):
+        e = min(hi, b + 256)
+        d = pa[None, :, :] - pa[b:e, None, :]
+        w = torch.rsqrt((d * d).sum(-1) + soft) ** 3
+        out[b - lo:e - lo] = (d.abs() * w[..., None]).sum(1)
+    return out
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_build() -> str:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    log = (lib_path.parent / "build.log").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "ok": True, "seconds": seconds,
+          "library": str(lib_path.relative_to(ROOT)), "nvidia_smi": smi,
+          "ptxas": ptxas})
+    return smi
+
+
+def phase_kernels(dev) -> dict:
+    from repro_torch.kernels.nbody import (nbody_forces_rows,
+                                           nbody_forces_rows_plain)
+    from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
+                                              wave_step_rows_plain)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    cases, ok = [], True
+    for N in (1000, 4096):
+        for dtype in (torch.float32, torch.float64):
+            p = torch.randn(N, 3, generator=g).to(dev, dtype)
+            full = nbody_forces_rows(p, 0, N)
+            for lo, hi in ((0, N), (0, N // 3), (N // 3, N), (N - 1, N),
+                           (17, 17 + N // 2)):
+                got = nbody_forces_rows(p, lo, hi)
+                e = errors(got, nbody_forces_rows_plain(p, lo, hi),
+                           "nbody_forces_rows", nbody_error_scale(p, lo, hi))
+                e["rows_of_full"] = bool(torch.equal(got, full[lo:hi]))
+                ok &= e["ok"] and e["rows_of_full"]
+                cases.append({"kernel": "nbody_forces_rows", "N": N,
+                              "dtype": str(dtype), "rows": [lo, hi], **e})
+    for H, W, cuts in ((1000, 777, (1, 250, 251, 600, 999)),
+                       (4096, 4096, (1000, 2048, 3001))):
+        for dtype in (torch.float32, torch.float64):
+            um = torch.randn(H, W, generator=g).to(dev, dtype)
+            u = torch.randn(H, W, generator=g).to(dev, dtype)
+            whole = wave_step_rows(um, u, 0, H)
+            edges = [0, *cuts, H]
+            parts = []
+            for lo, hi in zip(edges[:-1], edges[1:]):
+                top, bottom = halo_rows(lo, hi - lo, H)
+                parts.append(wave_step_rows(um[lo:hi],
+                                            u[lo - top:hi + bottom], lo, H))
+            e = errors(whole, wave_step_rows_plain(um, u, 0, H),
+                       "wave_step_rows")
+            e["chunks_equal_whole"] = bool(torch.equal(torch.cat(parts),
+                                                       whole))
+            ok &= e["ok"] and e["chunks_equal_whole"]
+            cases.append({"kernel": "wave_step_rows", "H": H, "W": W,
+                          "dtype": str(dtype), "cuts": list(cuts), **e})
+    torch.cuda.synchronize()
+    worst = {}
+    for c in cases:
+        worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), c["max_abs_err"])
+    emit({"phase": "kernels", "ok": ok, "cases": len(cases),
+          "max_abs_err": worst, "failed": [c for c in cases if not c["ok"]]})
+    if not ok:
+        raise SystemExit("kernel-versus-plain check failed")
+    return worst
+
+
+def gravity_forces(P: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """``examples/quickstart.py``'s numpy forces, in float64."""
+    d = P[None, :, :] - P[lo:hi, None, :]
+    r2 = (d * d).sum(-1) + 1e-3
+    return (d / r2[..., None] ** 1.5).sum(1)
+
+
+def wave_step_f64(um: np.ndarray, u: np.ndarray, c: float) -> np.ndarray:
+    """``examples/wavesim.py``'s numpy step, in float64 on the whole field."""
+    un = np.zeros_like(u)
+    un[1:-1, 1:-1] = (2 * u[1:-1, 1:-1] - um[1:-1, 1:-1] + c * (
+        u[:-2, 1:-1] + u[2:, 1:-1] + u[1:-1, :-2] + u[1:-1, 2:]
+        - 4 * u[1:-1, 1:-1]))
+    return un
+
+
+def phase_reference() -> None:
+    """The examples' own small configurations through the port on the card
+    (2 x 2, float64 storage) against their float64 numpy programs."""
+    from repro_torch.apps import run_nbody, run_wave
+    from repro_torch.core import Runtime
+    # examples/quickstart.py: N = 1024, 10 steps, seed 42.  The kernel
+    # computes forces in f32 (as the TPU kernel does), and close encounters
+    # (soft = 1e-3) amplify that rounding: positions agree to 1e-4 of their
+    # scale (8.5e-5 absolute for the plain version on the CPU).
+    rng = np.random.default_rng(42)
+    P0, V0 = rng.normal(size=(1024, 3)), rng.normal(size=(1024, 3)) * 0.1
+    with Runtime(NODES, DEVICES, device="cuda") as rt:
+        got = run_nbody(rt, P0, V0, 10, 0.01, 1.0)
+    P, V = P0, V0
+    for _ in range(10):
+        V = V + gravity_forces(P, 0, len(P)) * 0.01
+        P = P + V * 0.01
+    nbody_err, nbody_tol = float(np.abs(got - P).max()), 1e-4 * np.abs(P).max()
+    # examples/wavesim.py: a 256 x 128 splash, 20 steps, error under 1e-4
+    u1 = np.zeros((256, 128))
+    u1[124:132, 60:68] = 1.0
+    with Runtime(NODES, DEVICES, device="cuda") as rt:
+        gotw = run_wave(rt, u1.copy(), u1, 20, WAVE_C)
+    um, u = u1, u1
+    for _ in range(20):
+        um, u = u, wave_step_f64(um, u, WAVE_C)
+    wave_err = float(np.abs(gotw - u).max())
+    ok = nbody_err <= nbody_tol and wave_err < 1e-4
+    emit({"phase": "reference", "ok": ok,
+          "nbody": {"bodies": 1024, "steps": 10, "max_abs_err": nbody_err,
+                    "tol": nbody_tol},
+          "wavesim": {"field": [256, 128], "steps": 20,
+                      "max_abs_err": wave_err, "tol": 1e-4}})
+    if not ok:
+        raise SystemExit("the examples disagree with their float64 programs")
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import nbody_forces_rows, wave_step_rows
+    nbody_forces_rows.launches = wave_step_rows.launches = 0
+
+
+def timed_run(sim, steps: int) -> tuple[np.ndarray, dict]:
+    """Run ``sim`` (an ``NBody`` or a ``WaveSim`` on its runtime) for
+    ``steps`` steps; time the first step, the steps after it and the gather,
+    each window ended by a sync."""
+    t0 = time.perf_counter()
+    sim.advance(1)
+    sim.rt.sync()
+    t1 = time.perf_counter()
+    sim.advance(steps - 1)
+    sim.rt.sync()
+    t2 = time.perf_counter()
+    out = sim.gather()
+    t3 = time.perf_counter()
+    return out, {"first_step_s": t1 - t0, "steps_s": t2 - t1,
+                 "gather_s": t3 - t2, "total_s": t3 - t0,
+                 "steps_per_s": (steps - 1) / (t2 - t1)}
+
+
+def phase_nbody(dev) -> dict:
+    from repro_torch.apps import NBody
+    from repro_torch.core import Runtime
+    from repro_torch.kernels.nbody import nbody_forces_rows
+    rng = np.random.default_rng(SEED)
+    P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
+    V0 = (rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1)
+    with Runtime(NODES, DEVICES, device="cuda") as rt:
+        reset_launches()
+        got, times = timed_run(NBody(rt, P0, V0, DT, MASS), NBODY_STEPS)
+        launches = nbody_forces_rows.launches
+        comm = rt.comm_stats()
+        instructions = rt.total_instructions()
+    # the same steps without the runtime: B1 on the whole array, the same
+    # torch update expressions
+    P, V = torch.from_numpy(P0).to(dev), torch.from_numpy(V0).to(dev)
+    for _ in range(NBODY_STEPS):
+        F = nbody_forces_rows(P, 0, NBODY_N)
+        V = V + MASS * F * DT
+        P = P + V * DT
+    exp = P.cpu().numpy()
+    identical = bool(np.array_equal(got, exp))
+    finite = bool(np.isfinite(got).all()) and got.shape == (NBODY_N, 3)
+    ok = identical and finite and launches > 0
+    res = {"phase": "nbody", "ok": ok, "grid": [NODES, DEVICES],
+           "bodies": NBODY_N, "steps": NBODY_STEPS, "dtype": "float32",
+           "bit_identical_to_runtime_free": identical,
+           "max_abs_diff": float(np.abs(got - exp).max()),
+           "launches": launches, **times,
+           "instructions": instructions, "comm_bytes": comm["bytes"],
+           "comm_messages": comm["messages"]}
+    emit(res)
+    if not ok:
+        raise SystemExit("N-body phase failed")
+    return res
+
+
+def phase_wave(dev) -> dict:
+    from repro_torch.apps import WaveSim
+    from repro_torch.core import Runtime
+    from repro_torch.kernels.stencil5 import wave_step_rows
+    rng = np.random.default_rng(SEED + 1)
+    u0 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    with Runtime(NODES, DEVICES, device="cuda") as rt:
+        reset_launches()
+        got, times = timed_run(WaveSim(rt, u0, u1, WAVE_C), WAVE_STEPS)
+        launches = wave_step_rows.launches
+        comm = rt.comm_stats()
+        device_peak = rt.device_peak_bytes()
+    torch_peak = torch.cuda.max_memory_allocated()
+    um, u = torch.from_numpy(u0).to(dev), torch.from_numpy(u1).to(dev)
+    for _ in range(WAVE_STEPS):
+        um, u = u, wave_step_rows(um, u, 0, WAVE_H, WAVE_C)
+    exp = u.cpu().numpy()
+    identical = bool(np.array_equal(got, exp))
+    finite = bool(np.isfinite(got).all()) and got.shape == (WAVE_H, WAVE_W)
+    ok = identical and finite and launches > 0
+    res = {"phase": "wavesim", "ok": ok, "grid": [NODES, DEVICES],
+           "field": [WAVE_H, WAVE_W], "steps": WAVE_STEPS, "dtype": "float32",
+           "bit_identical_to_runtime_free": identical,
+           "max_abs_diff": float(np.abs(got - exp).max()),
+           "launches": launches, **times,
+           "comm_bytes_sent": comm["bytes"], "comm_messages": comm["messages"],
+           "device_peak_bytes": device_peak,
+           "torch_max_memory_allocated": torch_peak}
+    emit(res)
+    if not ok:
+        raise SystemExit("WaveSim phase failed")
+    return res
+
+
+def phase_timing(dev) -> list[dict]:
+    from repro_torch.kernels.nbody import (FLOPS_PER_PAIR, nbody_forces_rows,
+                                           nbody_forces_rows_plain)
+    from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
+                                              wave_step_rows_plain)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    out = []
+
+    # B1: one device's chunk of the N-body timestep
+    rows = NBODY_N // (NODES * DEVICES)
+    p = torch.randn(NBODY_N, 3, generator=g).to(dev)
+    ms = cuda_ms(lambda: nbody_forces_rows(p, 0, rows), reps=5)
+    plain_ms = cuda_ms(lambda: nbody_forces_rows_plain(p, 0, rows), reps=2)
+    e = errors(nbody_forces_rows(p, 0, rows),
+               nbody_forces_rows_plain(p, 0, rows), "nbody_forces_rows",
+               nbody_error_scale(p, 0, rows))
+    flops = FLOPS_PER_PAIR * rows * NBODY_N
+    nbytes = p.numel() * 4 + rows * 3 * 4
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    out.append({"name": "nbody_forces_rows", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "operations",
+                "share_of_bound": bound_ms / ms, "shape": [rows, NBODY_N],
+                "flops": flops, **e})
+
+    # B2: the four device chunks of one WaveSim step
+    H, W = WAVE_H, WAVE_W
+    um = torch.randn(H, W, generator=g).to(dev)
+    u = torch.randn(H, W, generator=g).to(dev)
+    step = H // (NODES * DEVICES)
+    chunks = []
+    for lo in range(0, H, step):
+        top, bottom = halo_rows(lo, step, H)
+        chunks.append((um[lo:lo + step], u[lo - top:lo + step + bottom], lo))
+    n = len(chunks)
+
+    def run(fn):
+        return [fn(a, b, lo, H, WAVE_C) for a, b, lo in chunks]
+
+    ms = cuda_ms(lambda: run(wave_step_rows), reps=20, warmup=3) / n
+    plain_ms = cuda_ms(lambda: run(wave_step_rows_plain), reps=5) / n
+    e = errors(torch.cat(run(wave_step_rows)),
+               torch.cat(run(wave_step_rows_plain)), "wave_step_rows")
+    nbytes = sum((a.numel() * 2 + b.numel()) * 4 for a, b, _ in chunks) / n
+    flops = 10 * step * W
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    out.append({"name": "wave_step_rows", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "share_of_bound": bound_ms / ms, "shape": [step, W],
+                "bytes": nbytes, **e})
+    ok = all(t["ok"] for t in out)
+    emit({"phase": "timing", "ok": ok, "kernels": out})
+    if not ok:
+        raise SystemExit("kernel-versus-plain check at main-path shapes failed")
+    return out
+
+
+def device_activity(run) -> dict:
+    """Run ``run()`` under torch.profiler; the union of the card's activity
+    intervals (kernels and copies, over all streams) against wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:                   # union of intervals, in us
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    by_name: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            by_name[ev.key[:60]] = ev.self_device_time_total / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_events": len(spans), "device_ms_by_name": top}
+
+
+def phase_profile() -> None:
+    from repro_torch.apps import run_nbody, run_wave
+    from repro_torch.core import Runtime
+    rng = np.random.default_rng(SEED + 3)
+    P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
+    V0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1
+    u0 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    runs = {"nbody": lambda rt: run_nbody(rt, P0, V0, 10, DT, MASS),
+            "wavesim": lambda rt: run_wave(rt, u0, u1, 20, WAVE_C)}
+    out = {}
+    for name, run in runs.items():
+        with Runtime(NODES, DEVICES, device="cuda") as rt:
+            out[name] = device_activity(lambda: run(rt))
+    ok = all(r["device_events"] > 0 for r in out.values())
+    emit({"phase": "profile", "ok": ok,
+          "note": "wall includes buffer seeding and the final gather",
+          "nbody_steps": 10, "wavesim_steps": 20, **out})
+    if not ok:
+        raise SystemExit("the profiler saw no device activity")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs a card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_build()
+    phase_kernels(dev)
+    phase_reference()
+    nbody = phase_nbody(dev)
+    wave = phase_wave(dev)
+    timing = {t["name"]: t for t in phase_timing(dev)}
+    phase_profile()
+    launches = {"nbody_forces_rows": nbody["launches"],
+                "wave_step_rows": wave["launches"]}
+    sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
+                                     "src/repro/kernels/nbody.py:23"),
+               "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",
+                                  "src/repro/kernels/stencil5.py:22")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        t = timing[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": None})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,6 @@
+// The CUDA runtime's name for an error code, for the Python wrappers' messages.
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

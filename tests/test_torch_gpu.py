@@ -1,0 +1,98 @@
+"""Tests of the torch port that need a CUDA card; each skips without one.
+
+Run on a machine with the card (no JAX needed there):
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import run_nbody, run_wave
+from repro_torch.core import Runtime
+from repro_torch.kernels.nbody import (nbody_forces_rows,
+                                       nbody_forces_rows_plain)
+from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
+                                          wave_step_rows_plain)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _randn(*shape, seed):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+
+def _term_magnitudes(p, lo, hi, soft=1e-3):
+    """``sum_j |d_ij| / r_ij^3`` per row and component: the scale of the
+    rounding error of an f32 sum of the force terms, whatever its order."""
+    pa = p.float()
+    d = pa[None, :, :] - pa[lo:hi, None, :]
+    w = torch.rsqrt((d * d).sum(-1) + soft) ** 3
+    return (d.abs() * w[..., None]).sum(1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nbody_kernel_matches_plain(cuda, dtype):
+    p = _randn(1000, 3, seed=7).to(cuda, dtype)
+    full = nbody_forces_rows(p, 0, 1000)
+    for lo, hi in [(0, 1000), (0, 333), (333, 1000), (999, 1000)]:
+        got = nbody_forces_rows(p, lo, hi)
+        err = (got - nbody_forces_rows_plain(p, lo, hi)).abs().float()
+        # f32 sums of N terms in two orders: relative to the terms' scale
+        assert (err <= 1e-6 + 1e-4 * _term_magnitudes(p, lo, hi)).all()
+        assert torch.equal(got, full[lo:hi])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wave_kernel_matches_plain(cuda, dtype):
+    H, W = 1000, 777
+    um = _randn(H, W, seed=8).to(cuda, dtype)
+    u = _randn(H, W, seed=9).to(cuda, dtype)
+    whole = wave_step_rows(um, u, 0, H)
+    torch.testing.assert_close(whole, wave_step_rows_plain(um, u, 0, H),
+                               rtol=1e-5, atol=1e-5)
+    parts = []
+    for lo, hi in [(0, 1), (1, 250), (250, 999), (999, 1000)]:
+        top, bottom = halo_rows(lo, hi - lo, H)
+        parts.append(wave_step_rows(um[lo:hi], u[lo - top:hi + bottom], lo, H))
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_wrappers_count_launches_and_reject_strided_input(cuda):
+    p = _randn(64, 3, seed=10).to(cuda)
+    n0 = nbody_forces_rows.launches
+    nbody_forces_rows(p, 0, 64)
+    nbody_forces_rows(p, 5, 5)                  # nothing to launch
+    assert nbody_forces_rows.launches == n0 + 1
+    with pytest.raises(ValueError):
+        nbody_forces_rows(_randn(3, 64, seed=11).to(cuda).t(), 0, 64)
+    with pytest.raises(TypeError):
+        nbody_forces_rows(p.half(), 0, 64)
+
+
+def test_runtime_runs_match_runtime_free_runs(cuda):
+    rng = np.random.default_rng(12)
+    P0 = rng.standard_normal((2048, 3), dtype=np.float32)
+    V0 = rng.standard_normal((2048, 3), dtype=np.float32) * 0.1
+    u0 = rng.standard_normal((300, 200), dtype=np.float32)
+    u1 = rng.standard_normal((300, 200), dtype=np.float32)
+    with Runtime(2, 2) as rt:
+        P = run_nbody(rt, P0, V0, 4, 1e-3, 1e-3)
+        F = run_wave(rt, u0, u1, 7)
+    p, v = torch.from_numpy(P0).to(cuda), torch.from_numpy(V0).to(cuda)
+    for _ in range(4):
+        v = v + 1e-3 * nbody_forces_rows(p, 0, 2048) * 1e-3
+        p = p + v * 1e-3
+    um, u = torch.from_numpy(u0).to(cuda), torch.from_numpy(u1).to(cuda)
+    for _ in range(7):
+        um, u = u, wave_step_rows(um, u, 0, 300)
+    np.testing.assert_array_equal(P, p.cpu().numpy())
+    np.testing.assert_array_equal(F, u.cpu().numpy())
