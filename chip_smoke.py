@@ -4,30 +4,49 @@
 
 Phases, each printing one JSON line:
 
-1. build     - compile kernels B1 and B2 from ``src/repro_torch/kernels/csrc``;
-               print the card's name and power limit (``nvidia-smi``).
-2. kernels   - each kernel against its plain PyTorch version on the card, at
-               small shapes, float32 and float64, ragged row ranges/chunks.
-3. reference - the examples' own small configurations (quickstart N-body,
-               WaveSim 256 x 128) through the port on 2 x 2 against their
-               float64 numpy programs.
-4. nbody     - the Listing-1 N-body through ``repro_torch.core.Runtime`` on
-               2 nodes x 2 devices: 2^17 float32 bodies, 20 steps, held
-               against the same 20 steps run without the runtime.
-5. wavesim   - WaveSim on 2 x 2: an 8192 x 8192 float32 field, 50 steps,
-               held against 50 whole-field kernel steps without the runtime.
-               Phases 4 and 5 time their steps inside the run: the first
-               step (which also seeds the buffers on the card) and the
-               steps after it, each ended by ``rt.sync()``, then the gather.
-6. timing    - each kernel at the shapes phases 4 and 5 give it, by CUDA
-               events, beside its bound, its plain version and its error
-               against the plain version there.
-7. profile   - N-body (10 steps) and WaveSim (20 steps) again under
-               torch.profiler: the device's busy and idle share of the
-               run's wall time, and device time by kernel.
-8. the ``kernels`` summary line, then the device line.
+1. build      - compile kernels B1, B2 and B3 from
+                ``src/repro_torch/kernels/csrc``; print the card's name and
+                power limit (``nvidia-smi``) and ptxas's register and spill
+                lines.
+2. kernels    - each kernel against its plain PyTorch version on the card:
+                B1 and B2 at small shapes, float32 and float64, ragged row
+                ranges/chunks; B3 at the shapes of ``tests/test_kernels.py``
+                plus (S, T, K, G, hd) = (1000, 1000, 2, 6, 128) and an hd = 80
+                case, float32 and bfloat16, causal, window 32 and
+                non-causal, and a ``q_offset`` case.
+3. reference  - the examples' own small configurations (quickstart N-body,
+                WaveSim 256 x 128) through the port on 2 x 2 against their
+                float64 numpy programs.
+4. nbody      - the Listing-1 N-body through ``repro_torch.core.Runtime`` on
+                2 nodes x 2 devices: 2^17 float32 bodies, 20 steps, held
+                against the same 20 steps run without the runtime.
+5. wavesim    - WaveSim on 2 x 2: an 8192 x 8192 float32 field, 50 steps,
+                held against 50 whole-field kernel steps without the runtime.
+                Phases 4 and 5 time their steps inside the run: the first
+                step (which also seeds the buffers on the card) and the
+                steps after it, each ended by ``rt.sync()``, then the gather.
+6. serve-reference - reduced qwen2-1.5b in float32 on the card (B3 on) against
+                the same weights served by the port on the CPU, which the
+                tests hold against the JAX package.
+7. serve      - qwen2-1.5b at full width through ``repro_torch.runtime.
+                ServeLoop``: 8 requests of 1024-2048 tokens, 4 per batch, 32
+                new tokens each, f32 weights, bf16 activations, flash
+                attention on (B3 in every layer's prefill), after a short
+                warm-up batch.  Prefill and decode are timed per call, each
+                window ended by ``torch.cuda.synchronize()``.  Held against
+                the same requests served with flash attention off (the
+                einsum route); then the launcher
+                ``python -m repro_torch.launch.serve --full`` once.
+8. timing     - each kernel at the shapes phases 4, 5 and 7 give it, by CUDA
+                events, beside its bound, its plain version, for B3 one
+                PyTorch call (``scaled_dot_product_attention``), and its
+                error against the plain version there.
+9. profile    - N-body (10 steps), WaveSim (20 steps) and one serve batch
+                under torch.profiler: the device's busy and idle share of the
+                run's wall time, and device time by kernel.
+10. the ``kernels`` summary line, then the device line.
 
-Phases 4 and 5 are the main path: every launch count is set to 0 just
+Phases 4, 5 and 7 are the main path: every launch count is set to 0 just
 before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
@@ -36,7 +55,10 @@ before printing anything on standard output.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -48,8 +70,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, bf16 dense on the
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 NODES, DEVICES = 2, 2
@@ -57,6 +81,9 @@ NBODY_N, NBODY_STEPS, DT, MASS = 1 << 17, 20, 1e-3, 1.0 / (1 << 17)
 WAVE_H = WAVE_W = 8192
 WAVE_STEPS, WAVE_C = 50, 0.25
 SEED = 11
+# the serving main path: qwen2-1.5b at full width
+SERVE_ARCH, SERVE_REQUESTS, SERVE_MAX_BATCH = "qwen2-1.5b", 8, 4
+SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
 
 # kernel-versus-plain tolerances: |kernel - plain| <= atol + rtol * scale
 # B1: scale = sum_j |term_ij| (nbody_error_scale).  The kernel sums N f32
@@ -65,8 +92,26 @@ SEED = 11
 #     the error is relative to the terms' magnitudes and not to the result.
 # B2: scale = |plain|.  The kernel's fused multiply-adds round once where
 #     torch rounds twice.
+# B3: scale = |plain|; tests/test_kernels.py's tolerances.  The two sum in
+#     other orders; in bf16 both round the softmax weights to bf16 before
+#     the product with v, but relative to running maxima over key blocks of
+#     different sizes (64 and 1024), and both round the output.
 TOL = {"nbody_forces_rows": dict(rtol=1e-4, atol=1e-6),
-       "wave_step_rows": dict(rtol=1e-5, atol=1e-5)}
+       "wave_step_rows": dict(rtol=1e-5, atol=1e-5),
+       "flash_attention.float32": dict(rtol=2e-5, atol=2e-5),
+       "flash_attention.bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# serve-reference: reduced qwen2-1.5b in f32, card against CPU: prefill and
+# decode logits within 1e-4 (f32 sums in other orders over two layers).
+SERVE_REF_TOL = 1e-4
+# serve: flash route (B3) against the einsum route at full width in bf16;
+# the last-token logits must agree within this share of their largest
+# magnitude.  The two routes round at different points (the einsum route
+# rounds the logits to bf16 before scaling them), and each layer adds two
+# bf16 outputs (attention, MLP) to the residual stream, each rounded to
+# 2^-8 of its size: 56 such differences add like a random walk, about
+# 2^-8 * sqrt(56) = 0.029; the tolerance leaves room above that estimate
+# (measured on an H100: up to 0.022, over a first guess of 0.02).
+SERVE_TOL = 4e-2
 
 
 def emit(obj) -> None:
@@ -128,7 +173,8 @@ def phase_build() -> str:
     print(smi, flush=True)
     log = (lib_path.parent / "build.log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Function properties" in ln]
     emit({"phase": "build", "ok": True, "seconds": seconds,
           "library": str(lib_path.relative_to(ROOT)), "nvidia_smi": smi,
           "ptxas": ptxas})
@@ -174,6 +220,7 @@ def phase_kernels(dev) -> dict:
             ok &= e["ok"] and e["chunks_equal_whole"]
             cases.append({"kernel": "wave_step_rows", "H": H, "W": W,
                           "dtype": str(dtype), "cuts": list(cuts), **e})
+    cases += flash_cases(dev, g)
     torch.cuda.synchronize()
     worst = {}
     for c in cases:
@@ -183,6 +230,41 @@ def phase_kernels(dev) -> dict:
     if not ok:
         raise SystemExit("kernel-versus-plain check failed")
     return worst
+
+
+def flash_cases(dev, g: torch.Generator) -> list[dict]:
+    """B3 against its plain version on the card."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cases = []
+    shapes = [(64, 64, 2, 3, 32), (128, 128, 1, 4, 64), (48, 96, 2, 1, 16),
+              (256, 256, 4, 2, 128), (1000, 1000, 2, 6, 128),
+              (300, 333, 2, 4, 80)]
+    for S, T, K, G, hd in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"flash_attention.{str(dtype).split('.')[1]}"
+            q = torch.randn(2, S, K, G, hd, generator=g).to(dev, dtype)
+            k = torch.randn(2, T, K, hd, generator=g).to(dev, dtype)
+            v = torch.randn(2, T, K, hd, generator=g).to(dev, dtype)
+            for causal, window in ((True, None), (True, 32), (False, None)):
+                got = flash_attention(q, k, v, causal=causal, window=window)
+                e = errors(got, flash_attention_plain(q, k, v, causal=causal,
+                                                      window=window), name)
+                cases.append({"kernel": "flash_attention",
+                              "shape": [S, T, K, G, hd], "dtype": str(dtype),
+                              "causal": causal, "window": window, **e})
+    # decode-style queries: the last 16 of 64 positions, at q_offset 48,
+    # against the whole run's rows
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"flash_attention.{str(dtype).split('.')[1]}"
+        q = torch.randn(1, 64, 2, 2, 32, generator=g).to(dev, dtype)
+        k = torch.randn(1, 64, 2, 32, generator=g).to(dev, dtype)
+        v = torch.randn(1, 64, 2, 32, generator=g).to(dev, dtype)
+        part = flash_attention(q[:, 48:].contiguous(), k, v, q_offset=48)
+        e = errors(part, flash_attention_plain(q, k, v)[:, 48:], name)
+        cases.append({"kernel": "flash_attention", "shape": [16, 64, 2, 2, 32],
+                      "dtype": str(dtype), "q_offset": 48, **e})
+    return cases
 
 
 def gravity_forces(P: np.ndarray, lo: int, hi: int) -> np.ndarray:
@@ -240,8 +322,10 @@ def phase_reference() -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from repro_torch.kernels import nbody_forces_rows, wave_step_rows
+    from repro_torch.kernels import (flash_attention, nbody_forces_rows,
+                                     wave_step_rows)
     nbody_forces_rows.launches = wave_step_rows.launches = 0
+    flash_attention.launches = 0
 
 
 def timed_run(sim, steps: int) -> tuple[np.ndarray, dict]:
@@ -335,6 +419,192 @@ def phase_wave(dev) -> dict:
     return res
 
 
+def phase_serve_reference(dev) -> dict:
+    """Reduced qwen2-1.5b in float32 with B3 on the card against the same
+    weights on the CPU (the tests hold the CPU port against the JAX
+    package): prefill and eight decode steps fed the CPU run's tokens."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(SERVE_ARCH, reduced=True),
+                              flash_attention=True)
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    card = copy.deepcopy(cpu).to(dev)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (3, 100))
+    ids[0, :37] = 0                       # left-padded, as ServeLoop pads
+    n0 = flash_attention.launches
+    with torch.inference_mode():
+        ref, ref_cache = cpu.prefill(torch.from_numpy(ids), max_len=128)
+        got, cache = card.prefill(torch.from_numpy(ids).to(dev), max_len=128)
+        steps = [(ref, got.cpu())]
+        for _ in range(8):
+            tok = ref.argmax(-1)[:, None]
+            ref, ref_cache = cpu.decode_step(ref_cache, tok)
+            got, cache = card.decode_step(cache, tok.to(dev))
+            steps.append((ref, got.cpu()))
+    launches = flash_attention.launches - n0
+    errs, compared, mismatched = [], 0, 0
+    for ref, got in steps:
+        errs.append(float((got - ref).abs().max()))
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > SERVE_REF_TOL
+        compared += int(decided.sum())
+        mismatched += int((got.argmax(-1) != ref.argmax(-1))[decided].sum())
+    ok = (max(errs) <= SERVE_REF_TOL and mismatched == 0
+          and launches == cfg.num_layers)
+    res = {"phase": "serve-reference", "ok": ok, "arch": cfg.name,
+           "reduced": True, "dtype": cfg.dtype, "batch": list(ids.shape),
+           "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
+           "tol": SERVE_REF_TOL, "tokens_compared": compared,
+           "tokens_mismatched": mismatched, "b3_launches": launches}
+    emit(res)
+    if not ok:
+        raise SystemExit("the card's reduced model disagrees with the CPU's")
+    return res
+
+
+def serve_prompts(vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, size=SERVE_REQUESTS)
+    return [rng.integers(0, vocab, size=int(n)) for n in lens]
+
+
+def serve_once(cfg, model, prompts, dev) -> dict:
+    """Serve ``prompts`` through a ServeLoop on ``model`` under ``cfg``; time
+    every prefill and decode call, each window ended by a synchronize, and
+    keep each prefill's last-token logits."""
+    from repro_torch.runtime import ServeLoop
+    model.cfg = cfg            # the model reads its attention route here
+    sl = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, device=dev)
+    rec = {"prefill": [], "decode": [], "logits": [], "shapes": []}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            if key == "prefill":
+                rec["logits"].append(out[0].float().cpu())
+                rec["shapes"].append(list(args[0].shape))
+            return out
+        return call
+
+    model.prefill = timed(model.prefill, "prefill")
+    model.decode_step = timed(model.decode_step, "decode")
+    reqs = [sl.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        sl.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    tokens = sum(len(r.output) for r in reqs)
+    prefill_tokens = sum(b * s for b, s in rec["shapes"])
+    decode_ms = sorted(x * 1e3 for x in rec["decode"])
+    return {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefill_shapes": rec["shapes"],
+            "prefill_ms": [x * 1e3 for x in rec["prefill"]],
+            "prefill_tokens_per_s": prefill_tokens / sum(rec["prefill"]),
+            "decode_steps": len(decode_ms),
+            "decode_ms_mean": sum(decode_ms) / len(decode_ms),
+            "decode_ms_median": decode_ms[len(decode_ms) // 2],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "stats": dict(sl.stats), "outputs": [r.output for r in reqs],
+            "logits": torch.cat(rec["logits"])}
+
+
+def run_launcher() -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen2-1.5b --full`` once,
+    with its defaults (8 requests of 12 tokens, 16 new tokens each)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--arch", SERVE_ARCH, "--full"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    summary = lines[0] if lines else ""
+    want = (r"\[serve\] qwen2-1\.5b: 8 requests, 128 tokens in \S+s "
+            r"\(\S+ tok/s\), 2 batches, 30 decode steps on cuda")
+    ok = r.returncode == 0 and re.fullmatch(want, summary) is not None
+    return {"ok": ok, "returncode": r.returncode, "summary": summary,
+            "seconds": time.perf_counter() - t0,
+            "stderr_tail": "" if ok else r.stderr[-2000:]}
+
+
+def phase_serve(dev, model, cfg) -> dict:
+    """The serving main path at full width with B3, held against the einsum
+    route on the same requests and weights."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.runtime import ServeLoop
+    prompts = serve_prompts(cfg.vocab_size)
+    # warm-up: the process's first prefill and decode set up cuBLAS and
+    # grow the allocator's pool; time them apart from the main path
+    t0 = time.perf_counter()
+    warm = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
+                     max_len=SERVE_MAX_LEN, device=dev)
+    for p in prompts[:SERVE_MAX_BATCH]:
+        warm.submit(p[:256], max_new=2)
+    warm.run_until_idle()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    reset_launches()
+    flash = serve_once(cfg, model, prompts, dev)
+    launches = flash_attention.launches
+    reset_launches()
+    einsum = serve_once(dataclasses.replace(cfg, flash_attention=False),
+                        model, prompts, dev)
+    einsum_launches = flash_attention.launches
+    model.cfg = cfg
+    f, e = flash.pop("logits"), einsum.pop("logits")
+    scale = e.abs().amax(-1)
+    rel_err = ((f - e).abs().amax(-1) / scale).tolist()
+    top2 = e.topk(2, dim=-1).values
+    decided = ((top2[:, 0] - top2[:, 1]) > SERVE_TOL * scale).tolist()
+    first_f = [o[0] for o in flash["outputs"]]
+    first_e = [o[0] for o in einsum["outputs"]]
+    mismatched = [i for i in range(len(prompts))
+                  if decided[i] and first_f[i] != first_e[i]]
+    same = sum(a == b for of, oe in zip(flash["outputs"], einsum["outputs"])
+               for a, b in zip(of, oe))
+    well_formed = (bool(torch.isfinite(f).all())
+                   and all(len(o) == SERVE_MAX_NEW
+                           and all(0 <= x < cfg.vocab_size for x in o)
+                           for o in flash["outputs"]))
+    batches = flash["stats"]["batches"]
+    launcher = run_launcher()
+    ok = (well_formed and launches == cfg.num_layers * batches
+          and einsum_launches == 0 and max(rel_err) <= SERVE_TOL
+          and not mismatched and launcher["ok"])
+    res = {"phase": "serve", "ok": ok, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts],
+           "max_batch": SERVE_MAX_BATCH, "max_new": SERVE_MAX_NEW,
+           "max_len": SERVE_MAX_LEN, "warmup_s": warmup_s,
+           "launches": launches,
+           "launches_per_prefill_batch": launches / batches,
+           "flash": {k: v for k, v in flash.items() if k != "outputs"},
+           "einsum": {k: v for k, v in einsum.items() if k != "outputs"},
+           "einsum_b3_launches": einsum_launches,
+           "last_logit_err_over_max": rel_err, "tol": SERVE_TOL,
+           "first_token_decided": decided, "first_token_mismatched": mismatched,
+           "tokens_equal_between_routes": same,
+           "tokens": flash["tokens"], "launcher": launcher}
+    emit(res)
+    if not ok:
+        raise SystemExit("serve phase failed")
+    return res
+
+
 def phase_timing(dev) -> list[dict]:
     from repro_torch.kernels.nbody import (FLOPS_PER_PAIR, nbody_forces_rows,
                                            nbody_forces_rows_plain)
@@ -384,11 +654,53 @@ def phase_timing(dev) -> list[dict]:
                 "bound_ms": bound_ms, "bound_by": "bytes",
                 "share_of_bound": bound_ms / ms, "shape": [step, W],
                 "bytes": nbytes, **e})
+    out.append(flash_timing(dev, g))
     ok = all(t["ok"] for t in out)
     emit({"phase": "timing", "ok": ok, "kernels": out})
     if not ok:
         raise SystemExit("kernel-versus-plain check at main-path shapes failed")
     return out
+
+
+def flash_timing(dev, g: torch.Generator) -> dict:
+    """B3 at one prefill layer of a full serve batch (B = 4, S = T = 2048,
+    qwen2-1.5b's heads), bf16, causal; beside it one PyTorch call,
+    ``scaled_dot_product_attention`` on ``[B, H, S, hd]`` views made before
+    the timed region."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, S, K, G, hd = SERVE_MAX_BATCH, SERVE_PROMPT_LENS[1], 2, 6, 128
+    q = torch.randn(B, S, K, G, hd, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=3)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, hd)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+
+    library_ms = cuda_ms(sdpa, reps=10, warmup=2)
+    got = flash_attention(q, k, v)
+    e = errors(got, flash_attention_plain(q, k, v), "flash_attention.bfloat16")
+    lib = sdpa().reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+    flops = 4 * B * K * G * hd * S * (S + 1) // 2      # live causal pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    return {"name": "flash_attention", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": bound_ms / ms, "shape": [B, S, S, K, G, hd],
+            "dtype": "bfloat16", "causal": True, "flops": flops,
+            "bytes": nbytes,
+            "library_max_abs_diff": float((lib.float() - got.float()).abs().max()),
+            **e}
 
 
 def device_activity(run) -> dict:
@@ -410,16 +722,20 @@ def device_activity(run) -> dict:
             busy_us += e - max(s, end)
             end = e
     by_name: dict[str, float] = {}
-    for ev in prof.key_averages():
-        if ev.self_device_time_total > 0:
-            by_name[ev.key[:60]] = ev.self_device_time_total / 1e3
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    for ev in prof.key_averages():       # the card's kernels and copies only
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0):
+            # names cut to 60 characters can collide: add them up
+            key = ev.key[:60]
+            by_name[key] = (by_name.get(key, 0.0)
+                            + ev.self_device_time_total / 1e3)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "device_events": len(spans), "device_ms_by_name": top}
 
 
-def phase_profile() -> None:
+def phase_profile(dev, model, cfg) -> None:
     from repro_torch.apps import run_nbody, run_wave
     from repro_torch.core import Runtime
     rng = np.random.default_rng(SEED + 3)
@@ -433,10 +749,24 @@ def phase_profile() -> None:
     for name, run in runs.items():
         with Runtime(NODES, DEVICES, device="cuda") as rt:
             out[name] = device_activity(lambda: run(rt))
+    from repro_torch.runtime import ServeLoop
+    sl = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
+                   max_len=SERVE_MAX_LEN, device=dev)
+    prompts = serve_prompts(cfg.vocab_size)[:SERVE_MAX_BATCH]
+
+    def serve_batch():
+        for p in prompts:
+            sl.submit(p, max_new=SERVE_MAX_NEW)
+        sl.run_until_idle()
+
+    out["serve"] = device_activity(serve_batch)
     ok = all(r["device_events"] > 0 for r in out.values())
     emit({"phase": "profile", "ok": ok,
-          "note": "wall includes buffer seeding and the final gather",
-          "nbody_steps": 10, "wavesim_steps": 20, **out})
+          "note": "N-body and WaveSim wall includes buffer seeding and the "
+                  "final gather",
+          "nbody_steps": 10, "wavesim_steps": 20,
+          "serve": f"one batch of {SERVE_MAX_BATCH} requests, "
+                   f"{SERVE_MAX_NEW} new tokens each", **out})
     if not ok:
         raise SystemExit("the profiler saw no device activity")
 
@@ -446,6 +776,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -454,14 +786,25 @@ def main() -> int:
     phase_reference()
     nbody = phase_nbody(dev)
     wave = phase_wave(dev)
+    phase_serve_reference(dev)
+    # full width: f32 weights drawn on the card from SEED, bf16 activations
+    serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                    flash_attention=True)
+    model = build_model(serve_cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    serve = phase_serve(dev, model, serve_cfg)
     timing = {t["name"]: t for t in phase_timing(dev)}
-    phase_profile()
+    phase_profile(dev, model, serve_cfg)
     launches = {"nbody_forces_rows": nbody["launches"],
-                "wave_step_rows": wave["launches"]}
+                "wave_step_rows": wave["launches"],
+                "flash_attention": serve["launches"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",
-                                  "src/repro/kernels/stencil5.py:22")}
+                                  "src/repro/kernels/stencil5.py:22"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:28")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timing[name]
@@ -469,7 +812,8 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": None})
+                        "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,154 @@
+"""Flash attention forward for grouped queries (kernel B3).
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py:_kernel``
+(``flash_attention_tpu``).  ``q`` is ``[B, S, K, G, hd]`` (``G`` query heads
+per KV head) and ``k``/``v`` are ``[B, T, K, hd]``; the result has ``q``'s
+shape and dtype.  Scale ``1/sqrt(hd)``, causal and sliding-window masks with
+``-1e30``, an online softmax with ``m``, ``l`` and the accumulator in f32,
+and the decode ``q_offset`` (query ``i`` sits at position ``i + q_offset``).
+
+On a CUDA tensor :func:`flash_attention` launches the hand-written kernel in
+``csrc/flash_attention.cu`` (contiguous, ``hd`` a multiple of 8 up to 128):
+in bfloat16 with tensor-core products, the softmax weights rounded to bf16
+before the product with ``v`` as the JAX reference rounds them; in float32
+with f32 products on the CUDA cores.  On a CPU tensor it runs the plain
+PyTorch version, :func:`flash_attention_plain`, the twin of the JAX
+package's blockwise reference (``repro.kernels.ref._flash_fwd_impl``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+
+# block sizes of the JAX reference (ref.flash_attention_ref's defaults)
+_Q_BLOCK, _KV_BLOCK = 512, 1024
+
+_count_lock = threading.Lock()
+
+
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: Optional[int], q_offset: int) -> None:
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q [B,S,K,G,hd] and k, v [B,T,K,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, K, G, hd = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, K, hd):
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if S == 0 or k.shape[1] == 0:
+        raise ValueError("empty query or key sequence")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
+def _block_mask(q0: int, k0: int, nq: int, nk: int, T: int, causal: bool,
+                window: Optional[int], device) -> torch.Tensor:
+    qpos = q0 + torch.arange(nq, device=device)[:, None]
+    kpos = k0 + torch.arange(nk, device=device)[None, :]
+    mask = (kpos < T).expand(nq, nk)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: Optional[int] = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: the JAX reference's blockwise online softmax
+    (query blocks of 512, key blocks of 1024), logits in f32 from exact
+    f32 products, probabilities rounded to ``v``'s dtype before the second
+    product, as ``ref._flash_fwd_impl`` does."""
+    _check_args(q, k, v, window, q_offset)
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf = q.float(), k.float()
+    out = torch.empty_like(q)
+    for s0 in range(0, S, _Q_BLOCK):
+        qblk = qf[:, s0:s0 + _Q_BLOCK]                       # [B,q,K,G,hd]
+        nq = qblk.shape[1]
+        m = torch.full((B, K, G, nq), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, nq), device=q.device)
+        acc = torch.zeros((B, K, G, nq, hd), device=q.device)
+        for t0 in range(0, T, _KV_BLOCK):
+            kblk = kf[:, t0:t0 + _KV_BLOCK]
+            vblk = v[:, t0:t0 + _KV_BLOCK]
+            logits = torch.einsum("bqkgh,btkh->bkgqt", qblk, kblk) * scale
+            mask = _block_mask(s0 + q_offset, t0, nq, kblk.shape[1], T,
+                               causal, window, q.device)
+            logits = torch.where(mask, logits, NEG_INF)
+            m2 = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m2[..., None])
+            corr = torch.exp(m - m2)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkh->bkgqh", p.to(v.dtype).float(), vblk.float())
+            m = m2
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out[:, s0:s0 + nq] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention of ``q`` ``[B,S,K,G,hd]`` over ``k``, ``v`` ``[B,T,K,hd]``.
+
+    CUDA tensors go through the kernel on the current stream; CPU tensors
+    through the plain version.  Each kernel launch adds one to
+    ``flash_attention.launches``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    _check_args(q, k, v, window, q_offset)
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    fns = {torch.float32: "repro_flash_fwd_f32",
+           torch.bfloat16: "repro_flash_fwd_bf16"}
+    if q.dtype not in fns:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    if hd % 8 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes hd a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    if B * K > 65535:
+        raise ValueError(f"B * K = {B * K} exceeds the grid's 65535 rows")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"kernel takes a contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"kernel takes a 16-byte aligned {name}")
+    out = torch.empty_like(q)
+    fn = getattr(_build.library(), fns[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, T, K, G, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
+                 int(causal), window or 0, q_offset, stream)
+    _build.check(err, "flash_attention launch")
+    with _count_lock:
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,222 @@
+"""Core layers of the dense decoder: norms, RoPE, GQA attention (sliding
+window, QKV bias), MLPs, embedding and head.
+
+The PyTorch counterpart of ``src/repro/models/layers.py``, for what serving a
+dense model needs.  Parameters are nested ``nn.ModuleDict`` /
+``nn.ParameterDict`` trees with the JAX package's names and layouts (a linear
+weight is ``[d_in, d_out]``), and the functions here take such a tree and
+tensors, as the JAX functions take a pytree.  Activations run in
+``cfg.dtype``; norms, RoPE and the softmax compute in f32 and round where the
+JAX functions round.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention import NEG_INF, flash_attention
+
+# ---------------------------------------------------------------------------
+# initializers
+
+
+def _normal(shape, dtype, scale, generator: torch.Generator) -> torch.Tensor:
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def tree(obj) -> nn.Module:
+    """Nested dicts of tensors -> ``ModuleDict`` / ``ParameterDict`` tree."""
+    if all(isinstance(v, torch.Tensor) for v in obj.values()):
+        return nn.ParameterDict({k: _param(v) for k, v in obj.items()})
+    return nn.ModuleDict({k: tree(v) for k, v in obj.items()})
+
+
+def init_linear(d_in, d_out, dtype, generator, bias=False, scale=None) -> dict:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal((d_in, d_out), dtype, scale, generator)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
+    return p
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def init_norm(d, dtype, device) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * p["g"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S].  Rotates the
+    split halves of hd (not interleaved pairs), in f32."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = positions[..., None].float() * inv               # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+
+
+def init_attention(cfg, generator) -> dict:
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return {
+        "wq": init_linear(d, H * hd, cfg.pdt, generator, bias=cfg.qkv_bias),
+        "wk": init_linear(d, K * hd, cfg.pdt, generator, bias=cfg.qkv_bias),
+        "wv": init_linear(d, K * hd, cfg.pdt, generator, bias=cfg.qkv_bias),
+        "wo": init_linear(H * hd, d, cfg.pdt, generator,
+                          scale=1.0 / math.sqrt(H * hd * 2 * cfg.num_layers)),
+    }
+
+
+FLASH_THRESHOLD = 4096 * 4096   # S*T above which blockwise attention is used
+
+
+def _sdpa(q, k, v, mask, *, use_kernel: bool = False, causal: bool = False,
+          window: Optional[int] = None):
+    """Grouped scaled-dot-product attention.
+
+    q: [B,S,K,G,hd] (G = query groups per kv head), k/v: [B,T,K,hd],
+    mask: [B,1,S,T] or broadcastable boolean (True = attend).
+
+    ``use_kernel`` and long causal prefills (S*T above ``FLASH_THRESHOLD``)
+    take :func:`flash_attention`: kernel B3 on the card, its plain version on
+    the CPU.  Otherwise the logits are materialised as the JAX einsum path
+    does: rounded to the activation dtype before the f32 scale, and the
+    softmax weights rounded back before the second product.
+    """
+    S, T = q.shape[1], k.shape[1]
+    if S > 1 and (use_kernel or (causal and S * T > FLASH_THRESHOLD)):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
+    logits = torch.where(mask[:, None, None] if mask.dim() == 3 else mask,
+                         logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", w, v)
+
+
+def causal_mask(S: int, T: int, offset: int = 0,
+                window: Optional[int] = None, device=None) -> torch.Tensor:
+    """[S,T] boolean mask; query i attends key j iff j <= i+offset (and
+    within the sliding window if given)."""
+    qpos = torch.arange(S, device=device)[:, None] + offset
+    kpos = torch.arange(T, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention(p, cfg, x, positions, mask, kv=None, *, use_kernel=False,
+              causal=False):
+    """kv: optional (k, v) override for cross-attention / cached decode."""
+    B, S, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if cfg.ablate_attention and kv is None:
+        # measurement-only path: QKV/O projections run, the O(S*T) mixing is
+        # skipped, as in the JAX package
+        qa = linear(p["wq"], x)
+        ka = linear(p["wk"], x).reshape(B, S, K, hd)
+        va = linear(p["wv"], x).reshape(B, S, K, hd)
+        return linear(p["wo"], qa * 0.001), (ka, va)
+    G = H // K
+    q = linear(p["wq"], x).reshape(B, S, H, hd)
+    q = apply_rope(q, positions, cfg.rope_theta) if cfg.rope_theta else q
+    if kv is None:
+        k = linear(p["wk"], x).reshape(B, S, K, hd)
+        v = linear(p["wv"], x).reshape(B, S, K, hd)
+        k = apply_rope(k, positions, cfg.rope_theta) if cfg.rope_theta else k
+    else:
+        k, v = kv
+    qg = q.reshape(B, S, K, G, hd)
+    out = _sdpa(qg, k, v, mask, use_kernel=use_kernel, causal=causal,
+                window=cfg.sliding_window)
+    out = out.reshape(B, S, H * hd)
+    return linear(p["wo"], out), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def init_mlp(cfg, generator, d_ff=None) -> dict:
+    d_ff = d_ff or cfg.d_ff
+    d = cfg.d_model
+    out_scale = 1.0 / math.sqrt(d_ff * 2 * cfg.num_layers)
+    p = {"wi": init_linear(d, d_ff, cfg.pdt, generator)}
+    if cfg.mlp == "swiglu":
+        p["wg"] = init_linear(d, d_ff, cfg.pdt, generator)
+    p["wo"] = init_linear(d_ff, d, cfg.pdt, generator, scale=out_scale)
+    return p
+
+
+def mlp(p, cfg, x):
+    if cfg.mlp == "swiglu":
+        h = F.silu(linear(p["wg"], x)) * linear(p["wi"], x)
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(linear(p["wi"], x), approximate="tanh")
+    return linear(p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: not ported yet
+
+
+def init_moe(cfg, generator):
+    raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
+
+
+def moe(p, cfg, x, *, group_size: int = 512):
+    raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+
+
+def init_embedding(vocab, d, dtype, generator) -> dict:
+    return {"e": _normal((vocab, d), dtype, 0.02, generator)}
+
+
+def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["e"][ids]
+
+
+def unembed(p, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return (x @ p["e"].t().to(x.dtype)).to(dtype)

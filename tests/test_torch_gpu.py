@@ -5,16 +5,24 @@ Run on a machine with the card (no JAX needed there):
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.apps import run_nbody, run_wave
+from repro_torch.configs import get_config
 from repro_torch.core import Runtime
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.models import build_model
 from repro_torch.kernels.nbody import (nbody_forces_rows,
                                        nbody_forces_rows_plain)
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
                                           wave_step_rows_plain)
+from repro_torch.runtime import ServeLoop
 
 pytestmark = pytest.mark.gpu
 
@@ -96,3 +104,74 @@ def test_runtime_runs_match_runtime_free_runs(cuda):
         um, u = u, wave_step_rows(um, u, 0, 300)
     np.testing.assert_array_equal(P, p.cpu().numpy())
     np.testing.assert_array_equal(F, u.cpu().numpy())
+
+
+# tests/test_kernels.py's tolerances: sums in other orders; in bf16 both
+# round the softmax weights to bf16, relative to different running maxima
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,K,G,hd", [(64, 64, 2, 3, 32),
+                                        (100, 130, 2, 6, 80),
+                                        (200, 200, 1, 4, 128)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
+                                           (False, None)])
+def test_flash_kernel_matches_plain(cuda, dtype, S, T, K, G, hd, causal,
+                                    window):
+    q = _randn(2, S, K, G, hd, seed=13).to(cuda, dtype)
+    k = _randn(2, T, K, hd, seed=14).to(cuda, dtype)
+    v = _randn(2, T, K, hd, seed=15).to(cuda, dtype)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    exp = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), exp.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_decode_offset(cuda, dtype):
+    q = _randn(1, 64, 2, 2, 32, seed=16).to(cuda, dtype)
+    k = _randn(1, 64, 2, 32, seed=17).to(cuda, dtype)
+    v = _randn(1, 64, 2, 32, seed=18).to(cuda, dtype)
+    part = flash_attention(q[:, 48:].contiguous(), k, v, q_offset=48)
+    full = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(part.float(), full[:, 48:].float(),
+                               **FLASH_TOL[dtype])
+
+
+def test_flash_wrapper_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    q = _randn(1, 8, 1, 2, 16, seed=19).to(cuda)
+    k = _randn(1, 8, 1, 16, seed=20).to(cuda)
+    n0 = flash_attention.launches
+    flash_attention(q, k, k)
+    assert flash_attention.launches == n0 + 1
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):                      # hd not a multiple of 8
+        flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                        k[..., :12].contiguous())
+    with pytest.raises(ValueError):                      # strided q
+        flash_attention(q[:, ::2], k, k)
+    assert flash_attention.launches == n0 + 1
+
+
+def test_reduced_serve_loop_on_card_matches_cpu(cuda):
+    """Reduced qwen2-1.5b (f32) with B3: the card's ServeLoop gives the
+    CPU's tokens on the same weights and requests."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                              flash_attention=True)
+    cpu_model = build_model(cfg).init(torch.Generator().manual_seed(21))
+    loops = [ServeLoop(cfg, cpu_model, max_batch=2, max_len=128, device="cpu"),
+             ServeLoop(cfg, copy.deepcopy(cpu_model).to(cuda), max_batch=2,
+                       max_len=128, device=cuda)]
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (40, 90, 65)]
+    outs = []
+    n0 = flash_attention.launches
+    for sl in loops:
+        reqs = [sl.submit(p, max_new=6) for p in prompts]
+        sl.run_until_idle()
+        outs.append([r.output for r in reqs])
+    assert flash_attention.launches == n0 + 2 * cfg.num_layers
+    assert outs[1] == outs[0]
