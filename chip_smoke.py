@@ -4,7 +4,7 @@
 
 Phases, each printing one JSON line:
 
-1. build      - compile kernels B1, B2 and B3 from
+1. build      - compile kernels B1, B2, B3 and B4 from
                 ``src/repro_torch/kernels/csrc``; print the card's name and
                 power limit (``nvidia-smi``) and ptxas's register and spill
                 lines.
@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
                 ranges/chunks; B3 at the shapes of ``tests/test_kernels.py``
                 plus (S, T, K, G, hd) = (1000, 1000, 2, 6, 128) and an hd = 80
                 case, float32 and bfloat16, causal, window 32 and
-                non-causal, and a ``q_offset`` case.
+                non-causal, and a ``q_offset`` case; B4 at the shapes of
+                ``tests/test_kernels.py``, a ragged s = 1000 and the serving
+                shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), float32 and
+                bfloat16.
 3. reference  - the examples' own small configurations (quickstart N-body,
                 WaveSim 256 x 128) through the port on 2 x 2 against their
                 float64 numpy programs.
@@ -25,9 +28,10 @@ Phases, each printing one JSON line:
                 Phases 4 and 5 time their steps inside the run: the first
                 step (which also seeds the buffers on the card) and the
                 steps after it, each ended by ``rt.sync()``, then the gather.
-6. serve-reference - reduced qwen2-1.5b in float32 on the card (B3 on) against
-                the same weights served by the port on the CPU, which the
-                tests hold against the JAX package.
+6. serve-reference - reduced qwen2-1.5b, mamba2-370m and zamba2-7b in float32
+                on the card (B3 on; B4 in every Mamba2 layer's prefill)
+                against the same weights served by the port on the CPU, which
+                the tests hold against the JAX package.
 7. serve      - qwen2-1.5b at full width through ``repro_torch.runtime.
                 ServeLoop``: 8 requests of 1024-2048 tokens, 4 per batch, 32
                 new tokens each, f32 weights, bf16 activations, flash
@@ -37,16 +41,24 @@ Phases, each printing one JSON line:
                 the same requests served with flash attention off (the
                 einsum route); then the launcher
                 ``python -m repro_torch.launch.serve --full`` once.
-8. timing     - each kernel at the shapes phases 4, 5 and 7 give it, by CUDA
-                events, beside its bound, its plain version, for B3 one
+8. ssm-serve  - mamba2-370m at full width through ``ServeLoop``: the same
+                traffic, f32 weights, bf16 activations, B4 in every layer's
+                prefill, after a warm-up batch.  Held by prefill of a batch's
+                first S - 1 tokens plus one recurrent decode step of the last
+                against the whole prefill; then the launcher
+                ``python -m repro_torch.launch.serve --arch mamba2-370m
+                --full`` once.
+9. timing     - each kernel at the shapes phases 4, 5, 7 and 8 give it, by
+                CUDA events, beside its bound, its plain version, for B3 one
                 PyTorch call (``scaled_dot_product_attention``), and its
                 error against the plain version there.
-9. profile    - N-body (10 steps), WaveSim (20 steps) and one serve batch
-                under torch.profiler: the device's busy and idle share of the
-                run's wall time, and device time by kernel.
-10. the ``kernels`` summary line, then the device line.
+10. profile   - N-body (10 steps), WaveSim (20 steps), one qwen2 serve batch
+                and one mamba2 serve batch under torch.profiler: the
+                device's busy and idle share of the run's wall time, and
+                device time by kernel.
+11. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5 and 7 are the main path: every launch count is set to 0 just
+Phases 4, 5, 7 and 8 are the main path: every launch count is set to 0 just
 before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
@@ -84,6 +96,10 @@ SEED = 11
 # the serving main path: qwen2-1.5b at full width
 SERVE_ARCH, SERVE_REQUESTS, SERVE_MAX_BATCH = "qwen2-1.5b", 8, 4
 SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
+# the SSM serving main path: mamba2-370m at full width, the same traffic
+SSM_ARCH = "mamba2-370m"
+# B4 at one layer of a full mamba2-370m prefill batch: b, s, h, p, n, chunk
+SSD_MAIN = (SERVE_MAX_BATCH, SERVE_PROMPT_LENS[1], 32, 64, 128, 64)
 
 # kernel-versus-plain tolerances: |kernel - plain| <= atol + rtol * scale
 # B1: scale = sum_j |term_ij| (nbody_error_scale).  The kernel sums N f32
@@ -96,12 +112,23 @@ SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
 #     other orders; in bf16 both round the softmax weights to bf16 before
 #     the product with v, but relative to running maxima over key blocks of
 #     different sizes (64 and 1024), and both round the output.
+# B4: scale = the sum of the terms' magnitudes (ssd_error_scale): y cancels,
+#     so an error relative to |y| says nothing near y = 0.  f32: the two sum
+#     up to chunk + 2n products at each of three levels in other orders, and
+#     expf is within 2 ulp; 1e-5 is about 100 f32 epsilons.  bf16: both
+#     round the same f32 y once, which differs by one bf16 step (up to 2^-7
+#     of |y|) where the sums fall on two sides of a rounding boundary, and
+#     h_prev, rounded to bf16 by both, can do the same (up to 2^-8 of its
+#     product with C): 2^-7 + 2^-8 < 1.2e-2 of the scale.
 TOL = {"nbody_forces_rows": dict(rtol=1e-4, atol=1e-6),
        "wave_step_rows": dict(rtol=1e-5, atol=1e-5),
        "flash_attention.float32": dict(rtol=2e-5, atol=2e-5),
-       "flash_attention.bfloat16": dict(rtol=2e-2, atol=2e-2)}
-# serve-reference: reduced qwen2-1.5b in f32, card against CPU: prefill and
-# decode logits within 1e-4 (f32 sums in other orders over two layers).
+       "flash_attention.bfloat16": dict(rtol=2e-2, atol=2e-2),
+       "ssd_scan.float32": dict(rtol=1e-5, atol=1e-6),
+       "ssd_scan.bfloat16": dict(rtol=1.2e-2, atol=1e-6)}
+# serve-reference: reduced models in f32, card against CPU: prefill and
+# decode logits within 1e-4 (f32 sums in other orders over two to four
+# layers).
 SERVE_REF_TOL = 1e-4
 # serve: flash route (B3) against the einsum route at full width in bf16;
 # the last-token logits must agree within this share of their largest
@@ -112,6 +139,19 @@ SERVE_REF_TOL = 1e-4
 # 2^-8 * sqrt(56) = 0.029; the tolerance leaves room above that estimate
 # (measured on an H100: up to 0.022, over a first guess of 0.02).
 SERVE_TOL = 4e-2
+# ssm-serve: prefill of S - 1 tokens plus one recurrent decode step against
+# the whole prefill, mamba2-370m at full width in bf16; the last-token
+# logits must agree within this share of their largest magnitude.  The two
+# paths round at different points (the chunked scan keeps its state in f32
+# and rounds y once; the recurrent step rounds the state, the conv and y to
+# bf16; the prefill's conv rounds after each of its four products), a
+# bf16 step or two of each layer's mixer output.  Estimated before the
+# first run on the card from the same check on the CPU at reduced width
+# (d_model 128-256, n 128, chunk 64, 300-token prompts): 0.006-0.012 at 2
+# layers, 0.010-0.024 at 8, 0.016-0.027 at 24, growing as the square root
+# of the depth, so about 0.03-0.04 at 48 layers; the tolerance leaves room
+# above that.
+SSM_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -221,6 +261,7 @@ def phase_kernels(dev) -> dict:
             cases.append({"kernel": "wave_step_rows", "H": H, "W": W,
                           "dtype": str(dtype), "cuts": list(cuts), **e})
     cases += flash_cases(dev, g)
+    cases += ssd_cases(dev, g)
     torch.cuda.synchronize()
     worst = {}
     for c in cases:
@@ -264,6 +305,48 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
         e = errors(part, flash_attention_plain(q, k, v)[:, 48:], name)
         cases.append({"kernel": "flash_attention", "shape": [16, 64, 2, 2, 32],
                       "dtype": str(dtype), "q_offset": 48, **e})
+    return cases
+
+
+def ssd_inputs(b, s, h, p, n, dtype, dev, g: torch.Generator):
+    """B4's inputs: x, B, C normal in ``dtype``, a = -softplus(normal) in
+    f32 (a log-decay, as ``tests/test_kernels.py`` draws it)."""
+    x = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+    a = -torch.nn.functional.softplus(torch.randn(b, s, h, generator=g))
+    B = torch.randn(b, s, n, generator=g).to(dev, dtype)
+    C = torch.randn(b, s, n, generator=g).to(dev, dtype)
+    return x, a.to(dev), B, C
+
+
+def ssd_error_scale(x, a, B, C, chunk: int):
+    """B4's plain version on ``|x|``, ``|B|``, ``|C|`` in f32: for each output
+    (y and the final state), the sum of the magnitudes of the terms that
+    make it up (the decays are positive), the scale of the rounding error of
+    any f32 sum of them, whatever its order."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    return ssd_scan_plain(x.float().abs(), a, B.float().abs(),
+                          C.float().abs(), chunk)
+
+
+def ssd_cases(dev, g: torch.Generator) -> list[dict]:
+    """B4 against its plain version on the card: the shapes of
+    ``tests/test_kernels.py``, a ragged s = 1000 and the serving shape."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    cases = []
+    shapes = [(2, 64, 2, 8, 4, 16), (2, 128, 4, 64, 16, 64),
+              (2, 96, 1, 16, 8, 32), (2, 1000, 2, 64, 128, 64), SSD_MAIN]
+    for b, s, h, p, n, chunk in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a, B, C = ssd_inputs(b, s, h, p, n, dtype, dev, g)
+            y, st = ssd_scan(x, a, B, C, chunk)
+            ye, ste = ssd_scan_plain(x, a, B, C, chunk)
+            y_scale, st_scale = ssd_error_scale(x, a, B, C, chunk)
+            e = errors(y, ye, f"ssd_scan.{str(dtype).split('.')[1]}", y_scale)
+            # the final state is f32 in both dtypes
+            e["state"] = errors(st, ste, "ssd_scan.float32", st_scale)
+            e["ok"] = e["ok"] and e["state"]["ok"]
+            cases.append({"kernel": "ssd_scan", "shape": [b, s, h, p, n, chunk],
+                          "dtype": str(dtype), **e})
     return cases
 
 
@@ -323,9 +406,9 @@ def phase_reference() -> None:
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import (flash_attention, nbody_forces_rows,
-                                     wave_step_rows)
+                                     ssd_scan, wave_step_rows)
     nbody_forces_rows.launches = wave_step_rows.launches = 0
-    flash_attention.launches = 0
+    flash_attention.launches = ssd_scan.launches = 0
 
 
 def timed_run(sim, steps: int) -> tuple[np.ndarray, dict]:
@@ -419,22 +502,26 @@ def phase_wave(dev) -> dict:
     return res
 
 
-def phase_serve_reference(dev) -> dict:
-    """Reduced qwen2-1.5b in float32 with B3 on the card against the same
-    weights on the CPU (the tests hold the CPU port against the JAX
-    package): prefill and eight decode steps fed the CPU run's tokens."""
+def serve_reference_one(dev, arch: str) -> dict:
+    """Reduced ``arch`` in float32, B3 on, against the same weights on the CPU
+    (the tests hold the CPU port against the JAX package): prefill and eight
+    decode steps fed the CPU run's tokens.  Checks the kernel launches of the
+    card's run: B3 once per attention layer's prefill, B4 once per Mamba2
+    layer's prefill."""
     import copy
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(SERVE_ARCH, reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               flash_attention=True)
     cpu = build_model(cfg).init(torch.Generator().manual_seed(SEED))
     card = copy.deepcopy(cpu).to(dev)
+    # 100 tokens: ragged against the reduced ssm_chunk of 16
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (3, 100))
     ids[0, :37] = 0                       # left-padded, as ServeLoop pads
-    n0 = flash_attention.launches
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    n0 = {k: f.launches for k, f in counters.items()}
     with torch.inference_mode():
         ref, ref_cache = cpu.prefill(torch.from_numpy(ids), max_len=128)
         got, cache = card.prefill(torch.from_numpy(ids).to(dev), max_len=128)
@@ -444,7 +531,12 @@ def phase_serve_reference(dev) -> dict:
             ref, ref_cache = cpu.decode_step(ref_cache, tok)
             got, cache = card.decode_step(cache, tok.to(dev))
             steps.append((ref, got.cpu()))
-    launches = flash_attention.launches - n0
+    launches = {k: f.launches - n0[k] for k, f in counters.items()}
+    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    want = {"dense": {"flash_attention": cfg.num_layers, "ssd_scan": 0},
+            "ssm": {"flash_attention": 0, "ssd_scan": cfg.num_layers},
+            "hybrid": {"flash_attention": groups,
+                       "ssd_scan": cfg.num_layers}}[cfg.family]
     errs, compared, mismatched = [], 0, 0
     for ref, got in steps:
         errs.append(float((got - ref).abs().max()))
@@ -452,17 +544,22 @@ def phase_serve_reference(dev) -> dict:
         decided = (top2[:, 0] - top2[:, 1]) > SERVE_REF_TOL
         compared += int(decided.sum())
         mismatched += int((got.argmax(-1) != ref.argmax(-1))[decided].sum())
-    ok = (max(errs) <= SERVE_REF_TOL and mismatched == 0
-          and launches == cfg.num_layers)
-    res = {"phase": "serve-reference", "ok": ok, "arch": cfg.name,
-           "reduced": True, "dtype": cfg.dtype, "batch": list(ids.shape),
-           "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
-           "tol": SERVE_REF_TOL, "tokens_compared": compared,
-           "tokens_mismatched": mismatched, "b3_launches": launches}
-    emit(res)
+    ok = max(errs) <= SERVE_REF_TOL and mismatched == 0 and launches == want
+    return {"ok": ok, "arch": cfg.name, "family": cfg.family,
+            "reduced": True, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "batch": list(ids.shape), "prefill_max_abs_err": errs[0],
+            "decode_max_abs_err": max(errs[1:]), "tol": SERVE_REF_TOL,
+            "tokens_compared": compared, "tokens_mismatched": mismatched,
+            "launches": launches, "launches_expected": want}
+
+
+def phase_serve_reference(dev) -> None:
+    runs = [serve_reference_one(dev, arch)
+            for arch in (SERVE_ARCH, SSM_ARCH, "zamba2-7b")]
+    ok = all(r["ok"] for r in runs)
+    emit({"phase": "serve-reference", "ok": ok, "runs": runs})
     if not ok:
-        raise SystemExit("the card's reduced model disagrees with the CPU's")
-    return res
+        raise SystemExit("a reduced model on the card disagrees with the CPU's")
 
 
 def serve_prompts(vocab: int) -> list[np.ndarray]:
@@ -499,6 +596,7 @@ def serve_once(cfg, model, prompts, dev) -> dict:
     model.decode_step = timed(model.decode_step, "decode")
     reqs = [sl.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
     torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     try:
         t0 = time.perf_counter()
         sl.run_until_idle()
@@ -517,21 +615,22 @@ def serve_once(cfg, model, prompts, dev) -> dict:
             "decode_ms_mean": sum(decode_ms) / len(decode_ms),
             "decode_ms_median": decode_ms[len(decode_ms) // 2],
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "memory_allocated_at_start": resident,
             "stats": dict(sl.stats), "outputs": [r.output for r in reqs],
             "logits": torch.cat(rec["logits"])}
 
 
-def run_launcher() -> dict:
-    """``python -m repro_torch.launch.serve --arch qwen2-1.5b --full`` once,
-    with its defaults (8 requests of 12 tokens, 16 new tokens each)."""
+def run_launcher(arch: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch> --full`` once, with
+    its defaults (8 requests of 12 tokens, 16 new tokens each)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                        "--arch", SERVE_ARCH, "--full"], cwd=ROOT, env=env,
+                        "--arch", arch, "--full"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=600)
     lines = r.stdout.splitlines()
     summary = lines[0] if lines else ""
-    want = (r"\[serve\] qwen2-1\.5b: 8 requests, 128 tokens in \S+s "
+    want = (rf"\[serve\] {re.escape(arch)}: 8 requests, 128 tokens in \S+s "
             r"\(\S+ tok/s\), 2 batches, 30 decode steps on cuda")
     ok = r.returncode == 0 and re.fullmatch(want, summary) is not None
     return {"ok": ok, "returncode": r.returncode, "summary": summary,
@@ -539,14 +638,11 @@ def run_launcher() -> dict:
             "stderr_tail": "" if ok else r.stderr[-2000:]}
 
 
-def phase_serve(dev, model, cfg) -> dict:
-    """The serving main path at full width with B3, held against the einsum
-    route on the same requests and weights."""
-    from repro_torch.kernels import flash_attention
+def warm_up(cfg, model, prompts, dev) -> float:
+    """One short batch before the main path: the first prefill and decode
+    at new shapes set up cuBLAS and grow the allocator's pool; timed apart
+    from the main path."""
     from repro_torch.runtime import ServeLoop
-    prompts = serve_prompts(cfg.vocab_size)
-    # warm-up: the process's first prefill and decode set up cuBLAS and
-    # grow the allocator's pool; time them apart from the main path
     t0 = time.perf_counter()
     warm = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
                      max_len=SERVE_MAX_LEN, device=dev)
@@ -554,7 +650,15 @@ def phase_serve(dev, model, cfg) -> dict:
         warm.submit(p[:256], max_new=2)
     warm.run_until_idle()
     torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def phase_serve(dev, model, cfg) -> dict:
+    """The serving main path at full width with B3, held against the einsum
+    route on the same requests and weights."""
+    from repro_torch.kernels import flash_attention
+    prompts = serve_prompts(cfg.vocab_size)
+    warmup_s = warm_up(cfg, model, prompts, dev)
     reset_launches()
     flash = serve_once(cfg, model, prompts, dev)
     launches = flash_attention.launches
@@ -579,7 +683,7 @@ def phase_serve(dev, model, cfg) -> dict:
                            and all(0 <= x < cfg.vocab_size for x in o)
                            for o in flash["outputs"]))
     batches = flash["stats"]["batches"]
-    launcher = run_launcher()
+    launcher = run_launcher(SERVE_ARCH)
     ok = (well_formed and launches == cfg.num_layers * batches
           and einsum_launches == 0 and max(rel_err) <= SERVE_TOL
           and not mismatched and launcher["ok"])
@@ -602,6 +706,73 @@ def phase_serve(dev, model, cfg) -> dict:
     emit(res)
     if not ok:
         raise SystemExit("serve phase failed")
+    return res
+
+
+@torch.inference_mode()
+def decode_against_prefill(model, prompts, dev) -> dict:
+    """One batch of ``prompts``, left-padded to the longest S as ServeLoop
+    pads them: prefill of the first S - 1 tokens plus one decode step of the
+    last against the prefill of all S.  Crosses B4's y and final state
+    (which prime the cache) with the recurrent decode, which does not use
+    B4."""
+    S = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), S), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, S - len(p):] = p
+    ids = torch.from_numpy(ids).to(dev)
+    full, _ = model.prefill(ids, max_len=SERVE_MAX_LEN)
+    _, cache = model.prefill(ids[:, :-1], max_len=SERVE_MAX_LEN)
+    step, _ = model.decode_step(cache, ids[:, -1:])
+    full, step = full.float().cpu(), step.float().cpu()
+    scale = full.abs().amax(-1)
+    rel_err = ((step - full).abs().amax(-1) / scale).tolist()
+    top2 = full.topk(2, dim=-1).values
+    decided = ((top2[:, 0] - top2[:, 1]) > SSM_TOL * scale).tolist()
+    mismatched = [i for i in range(len(prompts))
+                  if decided[i] and int(step[i].argmax()) != int(full[i].argmax())]
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
+    ok = finite and max(rel_err) <= SSM_TOL and not mismatched
+    return {"ok": ok, "batch": list(ids.shape), "finite": finite,
+            "last_logit_err_over_max": rel_err, "tol": SSM_TOL,
+            "first_token_decided": decided,
+            "first_token_mismatched": mismatched}
+
+
+def phase_ssm_serve(dev, model, cfg) -> dict:
+    """The SSM serving main path: mamba2-370m at full width through
+    ServeLoop, B4 in every layer's prefill; held by prefill against decode
+    on the first batch, then the launcher once."""
+    from repro_torch.kernels import ssd_scan
+    prompts = serve_prompts(cfg.vocab_size)
+    warmup_s = warm_up(cfg, model, prompts, dev)
+    reset_launches()
+    run = serve_once(cfg, model, prompts, dev)
+    launches = ssd_scan.launches
+    logits = run.pop("logits")
+    check = decode_against_prefill(model, prompts[:SERVE_MAX_BATCH], dev)
+    launcher = run_launcher(SSM_ARCH)
+    well_formed = (bool(torch.isfinite(logits).all())
+                   and all(len(o) == SERVE_MAX_NEW
+                           and all(0 <= x < cfg.vocab_size for x in o)
+                           for o in run["outputs"]))
+    batches = run["stats"]["batches"]
+    ok = (well_formed and launches == cfg.num_layers * batches
+          and check["ok"] and launcher["ok"])
+    res = {"phase": "ssm-serve", "ok": ok, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "ssm_heads": model.nheads, "headdim": model.headdim,
+           "ssm_state": cfg.ssm_state, "vocab": cfg.vocab_size,
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "max_batch": SERVE_MAX_BATCH, "max_new": SERVE_MAX_NEW,
+           "warmup_s": warmup_s, "launches": launches,
+           "launches_per_prefill_batch": launches / batches,
+           **{k: v for k, v in run.items() if k != "outputs"},
+           "decode_against_prefill": check, "launcher": launcher}
+    emit(res)
+    if not ok:
+        raise SystemExit("ssm-serve phase failed")
     return res
 
 
@@ -655,6 +826,7 @@ def phase_timing(dev) -> list[dict]:
                 "share_of_bound": bound_ms / ms, "shape": [step, W],
                 "bytes": nbytes, **e})
     out.append(flash_timing(dev, g))
+    out.append(ssd_timing(dev, g))
     ok = all(t["ok"] for t in out)
     emit({"phase": "timing", "ok": ok, "kernels": out})
     if not ok:
@@ -703,6 +875,35 @@ def flash_timing(dev, g: torch.Generator) -> dict:
             **e}
 
 
+def ssd_timing(dev, g: torch.Generator) -> dict:
+    """B4 at one layer of a full mamba2-370m prefill batch (``SSD_MAIN``),
+    bf16.  No single PyTorch call computes this function."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    b, s, h, p, n, chunk = SSD_MAIN
+    x, a, B, C = ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, g)
+    ms = cuda_ms(lambda: ssd_scan(x, a, B, C, chunk), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: ssd_scan_plain(x, a, B, C, chunk), reps=3)
+    y, _ = ssd_scan(x, a, B, C, chunk)
+    ye, _ = ssd_scan_plain(x, a, B, C, chunk)
+    e = errors(y, ye, "ssd_scan.bfloat16",
+               ssd_error_scale(x, a, B, C, chunk)[0])
+    # per (batch, head, chunk): C B^T and its product with x over the live
+    # (causal) pairs, C h_prev, and the state update x^T B
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * h * (s // chunk) * (2 * pairs * n + 2 * pairs * p
+                                    + 4 * chunk * n * p)
+    nbytes = (2 * x.numel() + B.numel() + C.numel()) * 2 + a.numel() * 4 \
+        + b * h * p * n * 4                      # x, y, B, C, a, state
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    return {"name": "ssd_scan", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": bound_ms / ms, "shape": list(SSD_MAIN),
+            "dtype": "bfloat16", "flops": flops, "bytes": nbytes, **e}
+
+
 def device_activity(run) -> dict:
     """Run ``run()`` under torch.profiler; the union of the card's activity
     intervals (kernels and copies, over all streams) against wall time."""
@@ -735,7 +936,8 @@ def device_activity(run) -> dict:
             "device_events": len(spans), "device_ms_by_name": top}
 
 
-def phase_profile(dev, model, cfg) -> None:
+def phase_profile(dev, models) -> None:
+    """``models``: (name, cfg, model) of each serving path; one batch each."""
     from repro_torch.apps import run_nbody, run_wave
     from repro_torch.core import Runtime
     rng = np.random.default_rng(SEED + 3)
@@ -750,23 +952,25 @@ def phase_profile(dev, model, cfg) -> None:
         with Runtime(NODES, DEVICES, device="cuda") as rt:
             out[name] = device_activity(lambda: run(rt))
     from repro_torch.runtime import ServeLoop
-    sl = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
-                   max_len=SERVE_MAX_LEN, device=dev)
-    prompts = serve_prompts(cfg.vocab_size)[:SERVE_MAX_BATCH]
+    for name, cfg, model in models:
+        sl = ServeLoop(cfg, model, max_batch=SERVE_MAX_BATCH,
+                       max_len=SERVE_MAX_LEN, device=dev)
+        prompts = serve_prompts(cfg.vocab_size)[:SERVE_MAX_BATCH]
 
-    def serve_batch():
-        for p in prompts:
-            sl.submit(p, max_new=SERVE_MAX_NEW)
-        sl.run_until_idle()
+        def serve_batch():
+            for p in prompts:
+                sl.submit(p, max_new=SERVE_MAX_NEW)
+            sl.run_until_idle()
 
-    out["serve"] = device_activity(serve_batch)
+        out[name] = device_activity(serve_batch)
     ok = all(r["device_events"] > 0 for r in out.values())
     emit({"phase": "profile", "ok": ok,
           "note": "N-body and WaveSim wall includes buffer seeding and the "
                   "final gather",
           "nbody_steps": 10, "wavesim_steps": 20,
-          "serve": f"one batch of {SERVE_MAX_BATCH} requests, "
-                   f"{SERVE_MAX_NEW} new tokens each", **out})
+          "serve_batches": f"one batch of {SERVE_MAX_BATCH} requests, "
+                           f"{SERVE_MAX_NEW} new tokens each, per model",
+          **out})
     if not ok:
         raise SystemExit("the profiler saw no device activity")
 
@@ -793,18 +997,26 @@ def main() -> int:
     model = build_model(serve_cfg).init(
         torch.Generator(device=dev).manual_seed(SEED))
     serve = phase_serve(dev, model, serve_cfg)
+    ssm_cfg = get_config(SSM_ARCH)
+    ssm_model = build_model(ssm_cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    ssm = phase_ssm_serve(dev, ssm_model, ssm_cfg)
     timing = {t["name"]: t for t in phase_timing(dev)}
-    phase_profile(dev, model, serve_cfg)
+    phase_profile(dev, [("serve", serve_cfg, model),
+                        ("ssm_serve", ssm_cfg, ssm_model)])
     launches = {"nbody_forces_rows": nbody["launches"],
                 "wave_step_rows": wave["launches"],
-                "flash_attention": serve["launches"]}
+                "flash_attention": serve["launches"],
+                "ssd_scan": ssm["launches"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",
                                   "src/repro/kernels/stencil5.py:22"),
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:28")}
+                   "src/repro/kernels/flash_attention.py:28"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:27")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timing[name]

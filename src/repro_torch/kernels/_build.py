@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nbody.cu", "stencil5.cu", "flash_attention.cu", "errors.cu")
+SOURCES = ("nbody.cu", "stencil5.cu", "flash_attention.cu", "ssd_scan.cu",
+           "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CFLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,8 @@ _SIGNATURES = {
                             _I, _I, _P],
     "repro_flash_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _I, _I, _P],
+    "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_ssd_scan_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,13 @@
 
 ``--engine model`` runs the continuous-batching-lite ServeLoop: requests are
 packed into slot batches, prefilled once, decoded in lock-step; finished
-slots refill from the queue.  Weights are drawn from a seed.
+slots refill from the queue.  Weights are drawn from a seed.  ``--arch``
+takes the dense configs (qwen2-1.5b, h2o-danube-1.8b, starcoder2-3b,
+minitron-4b), mamba2-370m and zamba2-7b.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --max-new 16 [--full] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full
 
 The JAX package's ``--engine scheduler`` needs the serving runtime
 (``core/memo.py``), which is not ported yet (ROADMAP A11).

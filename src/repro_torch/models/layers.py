@@ -1,13 +1,13 @@
-"""Core layers of the dense decoder: norms, RoPE, GQA attention (sliding
-window, QKV bias), MLPs, embedding and head.
+"""Core layers of the models: norms, RoPE, GQA attention (sliding window,
+QKV bias), MLPs, embedding and head.
 
-The PyTorch counterpart of ``src/repro/models/layers.py``, for what serving a
-dense model needs.  Parameters are nested ``nn.ModuleDict`` /
-``nn.ParameterDict`` trees with the JAX package's names and layouts (a linear
-weight is ``[d_in, d_out]``), and the functions here take such a tree and
-tensors, as the JAX functions take a pytree.  Activations run in
-``cfg.dtype``; norms, RoPE and the softmax compute in f32 and round where the
-JAX functions round.
+The PyTorch counterpart of ``src/repro/models/layers.py``, for what serving
+the dense, ssm and hybrid models needs.  Parameters are :class:`Tree`
+modules with the JAX package's names and layouts (a linear weight is
+``[d_in, d_out]``), and the functions here take such a tree and tensors, as
+the JAX functions take a pytree.  Activations run in ``cfg.dtype``; norms,
+RoPE and the softmax compute in f32 and round where the JAX functions
+round.
 """
 
 from __future__ import annotations
@@ -34,11 +34,50 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def tree(obj) -> nn.Module:
-    """Nested dicts of tensors -> ``ModuleDict`` / ``ParameterDict`` tree."""
-    if all(isinstance(v, torch.Tensor) for v in obj.values()):
-        return nn.ParameterDict({k: _param(v) for k, v in obj.items()})
-    return nn.ModuleDict({k: tree(v) for k, v in obj.items()})
+class Tree(nn.Module):
+    """Nested dicts of tensors as a module, indexed like the dicts: a tensor
+    becomes a frozen parameter, a dict a subtree."""
+
+    def __init__(self, obj: dict):
+        super().__init__()
+        for k, v in obj.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, _param(v))
+            else:
+                self.add_module(k, Tree(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+class TreeLM(nn.Module):
+    """A language model whose weights are :class:`Tree` modules in the JAX
+    package's layout: top-level parameters (``embed``, ``ln_f``, ``head``,
+    ...) in ``params`` and one tree per layer in ``layers``.  A subclass's
+    ``init`` draws them from a generator; :meth:`load` takes them as nested
+    dicts of tensors (see ``models.convert.model_from_numpy``)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.params = nn.ModuleDict()
+        self.layers = nn.ModuleList()
+
+    def load(self, params: dict, layers: list):
+        self.params = Tree(params)
+        self.layers = nn.ModuleList(Tree(lp) for lp in layers)
+        return self
+
+    def _logits(self, x):
+        """Final norm, then the tied embedding or the head; f32 logits."""
+        cfg = self.cfg
+        x = rms_norm(self.params["ln_f"], x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return unembed(self.params["embed"], x)
+        return linear(self.params["head"], x).float()
 
 
 def init_linear(d_in, d_out, dtype, generator, bias=False, scale=None) -> dict:

@@ -10,7 +10,6 @@ ported yet.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from . import layers as L
 from .config import ArchConfig
@@ -23,26 +22,16 @@ def _check_family(cfg: ArchConfig) -> None:
         raise ValueError(f"DecoderLM serves the dense family, not {cfg.family}")
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(L.TreeLM):
     """Build with ``DecoderLM(cfg)``, then give it weights: :meth:`init`
     draws them from a generator, :meth:`load` takes the JAX package's
-    parameter tree (see ``models.convert.decoder_from_numpy``)."""
+    parameter tree."""
 
     def __init__(self, cfg: ArchConfig):
-        super().__init__()
         _check_family(cfg)
-        self.cfg = cfg
-        self.params = nn.ModuleDict()
-        self.layers = nn.ModuleList()
+        super().__init__(cfg)
 
     # -- params ---------------------------------------------------------------
-    def load(self, params: dict, layers: list) -> "DecoderLM":
-        """Take top-level parameters (``embed``, ``ln_f``, ``head``) and one
-        dict per layer, each nested dicts of tensors in the JAX layout."""
-        self.params = L.tree(params)
-        self.layers = nn.ModuleList(L.tree(lp) for lp in layers)
-        return self
-
     def init_layer(self, generator: torch.Generator) -> dict:
         cfg = self.cfg
         dev = generator.device
@@ -79,13 +68,6 @@ class DecoderLM(nn.Module):
         x = x + a
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
         return x + L.mlp(p["mlp"], cfg, h), 0.0, new_kv
-
-    def _logits(self, x):
-        cfg = self.cfg
-        x = L.rms_norm(self.params["ln_f"], x, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            return L.unembed(self.params["embed"], x)
-        return L.linear(self.params["head"], x).float()
 
     # -- full forward (prefill) -----------------------------------------------------
     def forward(self, ids, *, return_cache: bool = False,

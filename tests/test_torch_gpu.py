@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.models import build_model
 from repro_torch.kernels.nbody import (nbody_forces_rows,
                                        nbody_forces_rows_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
                                           wave_step_rows_plain)
 from repro_torch.runtime import ServeLoop
@@ -174,4 +175,83 @@ def test_reduced_serve_loop_on_card_matches_cpu(cuda):
         sl.run_until_idle()
         outs.append([r.output for r in reqs])
     assert flash_attention.launches == n0 + 2 * cfg.num_layers
+    assert outs[1] == outs[0]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, cuda, seed):
+    x = _randn(b, s, h, p, seed=seed).to(cuda, dtype)
+    a = -torch.nn.functional.softplus(_randn(b, s, h, seed=seed + 1)).to(cuda)
+    B = _randn(b, s, n, seed=seed + 2).to(cuda, dtype)
+    C = _randn(b, s, n, seed=seed + 3).to(cuda, dtype)
+    return x, a, B, C
+
+
+# (s, chunk, h, p, n): tests/test_kernels.py's shapes, then ragged ones
+SSD_SHAPES = [(64, 16, 2, 8, 4), (128, 64, 4, 64, 16), (96, 32, 1, 16, 8),
+              (1000, 64, 2, 16, 8), (77, 16, 3, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,h,p,n", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, n):
+    """f32: tests/test_kernels.py's 2e-4 (sums in another order).  bf16: both
+    round the f32 value of y once, so one bf16 step (up to 2^-7 of |y|)
+    where the sums fall on two sides of a rounding boundary, and h_prev,
+    rounded to bf16 by both, can do the same (2^-8 of its product with C);
+    both are bounded by 1.2e-2 of the sum of the terms' magnitudes, which
+    the plain version computes on |x|, |B|, |C|."""
+    x, a, B, C = _ssd_inputs(2, s, h, p, n, dtype, cuda, seed=30)
+    y, st = ssd_scan(x, a, B, C, chunk)
+    ye, ste = ssd_scan_plain(x, a, B, C, chunk)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == (2, h, p, n)
+    torch.testing.assert_close(st, ste, atol=2e-4, rtol=2e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ye, atol=2e-4, rtol=2e-4)
+    else:
+        scale = ssd_scan_plain(x.float().abs(), a, B.float().abs(),
+                               C.float().abs(), chunk)[0]
+        assert ((y.float() - ye.float()).abs() <= 1.2e-2 * scale).all()
+
+
+def test_ssd_wrapper_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    x, a, B, C = _ssd_inputs(1, 40, 2, 8, 4, torch.float32, cuda, seed=40)
+    n0 = ssd_scan.launches
+    ssd_scan(x, a, B, C, 16)
+    assert ssd_scan.launches == n0 + 1
+    with pytest.raises(ValueError):                      # strided x
+        ssd_scan(x[:, :, :, ::2], a, B, C, 16)
+    with pytest.raises(ValueError):                      # strided B
+        ssd_scan(x, a, torch.cat([B, B], -1)[..., ::2], C, 16)
+    with pytest.raises(TypeError):                       # B in another dtype
+        ssd_scan(x, a, B.bfloat16(), C, 16)
+    with pytest.raises(TypeError):                       # a not f32
+        ssd_scan(x, a.double(), B, C, 16)
+    with pytest.raises(ValueError):                      # chunk above 64
+        ssd_scan(x, a, B, C, 128)
+    assert ssd_scan.launches == n0 + 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_reduced_ssm_serve_loop_on_card_matches_cpu(cuda, arch):
+    """Reduced mamba2-370m and zamba2-7b (f32) with B4 (and B3 for zamba2's
+    shared attention): the card's ServeLoop gives the CPU's tokens on the
+    same weights and requests."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              flash_attention=True)
+    cpu_model = build_model(cfg).init(torch.Generator().manual_seed(23))
+    loops = [ServeLoop(cfg, cpu_model, max_batch=2, max_len=128, device="cpu"),
+             ServeLoop(cfg, copy.deepcopy(cpu_model).to(cuda), max_batch=2,
+                       max_len=128, device=cuda)]
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (40, 90, 65)]
+    outs = []
+    n0, f0 = ssd_scan.launches, flash_attention.launches
+    for sl in loops:
+        reqs = [sl.submit(p, max_new=6) for p in prompts]
+        sl.run_until_idle()
+        outs.append([r.output for r in reqs])
+    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    assert ssd_scan.launches == n0 + 2 * cfg.num_layers
+    assert flash_attention.launches == f0 + 2 * groups
     assert outs[1] == outs[0]
