@@ -11,9 +11,11 @@ Phases, each printing one JSON line:
 2. kernels    - each kernel against its plain PyTorch version on the card:
                 B1 and B2 at small shapes, float32 and float64, ragged row
                 ranges/chunks; B3 at the shapes of ``tests/test_kernels.py``
-                plus (S, T, K, G, hd) = (1000, 1000, 2, 6, 128) and an hd = 80
-                case, float32 and bfloat16, causal, window 32 and
-                non-causal, and a ``q_offset`` case; B4 at the shapes of
+                plus (S, T, K, G, hd) = (1000, 1000, 2, 6, 128) and edge
+                shapes (hd 24, 80 and 112, G = 1, rows and keys off the
+                kernel's 128-row and 128-key tiles), float32 and bfloat16,
+                causal, windows 32 and 200 and non-causal, and ``q_offset``
+                cases with T > S; B4 at the shapes of
                 ``tests/test_kernels.py``, a ragged s = 1000 and the serving
                 shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), float32 and
                 bfloat16.
@@ -51,7 +53,8 @@ Phases, each printing one JSON line:
 9. timing     - each kernel at the shapes phases 4, 5, 7 and 8 give it, by
                 CUDA events, beside its bound, its plain version, for B3 one
                 PyTorch call (``scaled_dot_product_attention``), and its
-                error against the plain version there.
+                error against the plain version there; B1's and B3's
+                achieved TFLOP/s.
 10. profile   - N-body (10 steps), WaveSim (20 steps), one qwen2 serve batch
                 and one mamba2 serve batch under torch.profiler: the
                 device's busy and idle share of the run's wall time, and
@@ -278,33 +281,45 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     cases = []
+    # (S, T, K, G, hd): tests/test_kernels.py's shapes; the serving heads
+    # (G 6, hd 128); hd 80 (h2o-danube) and 24; zamba2-7b's shared block
+    # (hd 112, G 1); S * G not a multiple of the bf16 kernel's 128-row blocks
+    # and T not a multiple of its 128-key tiles
     shapes = [(64, 64, 2, 3, 32), (128, 128, 1, 4, 64), (48, 96, 2, 1, 16),
               (256, 256, 4, 2, 128), (1000, 1000, 2, 6, 128),
-              (300, 333, 2, 4, 80)]
+              (300, 333, 2, 4, 80), (77, 77, 2, 5, 24), (300, 333, 1, 1, 112),
+              (257, 300, 2, 6, 80)]
     for S, T, K, G, hd in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             name = f"flash_attention.{str(dtype).split('.')[1]}"
             q = torch.randn(2, S, K, G, hd, generator=g).to(dev, dtype)
             k = torch.randn(2, T, K, hd, generator=g).to(dev, dtype)
             v = torch.randn(2, T, K, hd, generator=g).to(dev, dtype)
-            for causal, window in ((True, None), (True, 32), (False, None)):
+            # windows smaller (32) and larger (200) than one key tile
+            for causal, window in ((True, None), (True, 32), (True, 200),
+                                   (False, None)):
                 got = flash_attention(q, k, v, causal=causal, window=window)
                 e = errors(got, flash_attention_plain(q, k, v, causal=causal,
                                                       window=window), name)
                 cases.append({"kernel": "flash_attention",
                               "shape": [S, T, K, G, hd], "dtype": str(dtype),
                               "causal": causal, "window": window, **e})
-    # decode-style queries: the last 16 of 64 positions, at q_offset 48,
-    # against the whole run's rows
-    for dtype in (torch.float32, torch.bfloat16):
-        name = f"flash_attention.{str(dtype).split('.')[1]}"
-        q = torch.randn(1, 64, 2, 2, 32, generator=g).to(dev, dtype)
-        k = torch.randn(1, 64, 2, 32, generator=g).to(dev, dtype)
-        v = torch.randn(1, 64, 2, 32, generator=g).to(dev, dtype)
-        part = flash_attention(q[:, 48:].contiguous(), k, v, q_offset=48)
-        e = errors(part, flash_attention_plain(q, k, v)[:, 48:], name)
-        cases.append({"kernel": "flash_attention", "shape": [16, 64, 2, 2, 32],
-                      "dtype": str(dtype), "q_offset": 48, **e})
+    # decode-style queries: the last S of T positions at q_offset T - S,
+    # against the whole run's rows (T, S, G, hd, window)
+    for T, S, G, hd, window in ((64, 16, 2, 32, None), (300, 100, 6, 128, None),
+                                (333, 77, 1, 112, None), (300, 130, 3, 80, 96)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"flash_attention.{str(dtype).split('.')[1]}"
+            q = torch.randn(1, T, 2, G, hd, generator=g).to(dev, dtype)
+            k = torch.randn(1, T, 2, hd, generator=g).to(dev, dtype)
+            v = torch.randn(1, T, 2, hd, generator=g).to(dev, dtype)
+            part = flash_attention(q[:, T - S:].contiguous(), k, v,
+                                   window=window, q_offset=T - S)
+            e = errors(part, flash_attention_plain(q, k, v, window=window)
+                       [:, T - S:], name)
+            cases.append({"kernel": "flash_attention",
+                          "shape": [S, T, 2, G, hd], "dtype": str(dtype),
+                          "window": window, "q_offset": T - S, **e})
     return cases
 
 
@@ -798,7 +813,7 @@ def phase_timing(dev) -> list[dict]:
     out.append({"name": "nbody_forces_rows", "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "operations",
                 "share_of_bound": bound_ms / ms, "shape": [rows, NBODY_N],
-                "flops": flops, **e})
+                "flops": flops, "tflops": flops / ms / 1e9, **e})
 
     # B2: the four device chunks of one WaveSim step
     H, W = WAVE_H, WAVE_W
@@ -870,6 +885,8 @@ def flash_timing(dev, g: torch.Generator) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "share_of_bound": bound_ms / ms, "shape": [B, S, S, K, G, hd],
             "dtype": "bfloat16", "causal": True, "flops": flops,
+            "tflops": flops / ms / 1e9,
+            "library_tflops": flops / library_ms / 1e9,
             "bytes": nbytes,
             "library_max_abs_diff": float((lib.float() - got.float()).abs().max()),
             **e}

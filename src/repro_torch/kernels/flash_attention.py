@@ -8,12 +8,13 @@ shape and dtype.  Scale ``1/sqrt(hd)``, causal and sliding-window masks with
 and the decode ``q_offset`` (query ``i`` sits at position ``i + q_offset``).
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written kernel in
-``csrc/flash_attention.cu`` (contiguous, ``hd`` a multiple of 8 up to 128):
-in bfloat16 with tensor-core products, the softmax weights rounded to bf16
-before the product with ``v`` as the JAX reference rounds them; in float32
-with f32 products on the CUDA cores.  On a CPU tensor it runs the plain
-PyTorch version, :func:`flash_attention_plain`, the twin of the JAX
-package's blockwise reference (``repro.kernels.ref._flash_fwd_impl``).
+``csrc/flash_attention.cu`` (contiguous, 16-byte aligned, ``hd`` a multiple
+of 8 up to 128): in bfloat16 with TMA loads and ``wgmma`` tensor-core
+products, the softmax weights rounded to bf16 before the product with ``v``
+as the JAX reference rounds them; in float32 with f32 products on the CUDA
+cores.  On a CPU tensor it runs the plain PyTorch version,
+:func:`flash_attention_plain`, the twin of the JAX package's blockwise
+reference (``repro.kernels.ref._flash_fwd_impl``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ MAX_HEAD_DIM = 128
 
 # block sizes of the JAX reference (ref.flash_attention_ref's defaults)
 _Q_BLOCK, _KV_BLOCK = 512, 1024
+
+# the f32 kernel's grid is (row blocks, B * K); the bf16 kernel's is one
+# dimension of B * K times its row blocks of 128
+_BF16_ROWS = 128
+_MAX_GRID_Y, _MAX_GRID_X = 65535, 2**31 - 1
 
 _count_lock = threading.Lock()
 
@@ -131,8 +137,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd % 8 or hd > MAX_HEAD_DIM:
         raise ValueError(f"kernel takes hd a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}, got {hd}")
-    if B * K > 65535:
-        raise ValueError(f"B * K = {B * K} exceeds the grid's 65535 rows")
+    if q.dtype == torch.float32:
+        if B * K > _MAX_GRID_Y:
+            raise ValueError(f"B * K = {B * K} exceeds the grid's "
+                             f"{_MAX_GRID_Y} rows")
+    elif -(-S * G // _BF16_ROWS) * B * K > _MAX_GRID_X:
+        raise ValueError(f"{B} x {S} x {K} x {G} query rows exceed the grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"kernel takes a contiguous {name}")

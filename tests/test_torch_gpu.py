@@ -48,16 +48,31 @@ def _term_magnitudes(p, lo, hi, soft=1e-3):
     return (d.abs() * w[..., None]).sum(1)
 
 
+def _splits(N, seed):
+    """Row ranges [lo, hi) of N: halves, thirds, single rows at both ends,
+    and ranges cut at random points (none on a 64-row block boundary by
+    design)."""
+    rng = np.random.default_rng(seed)
+    cuts = sorted(int(c) for c in rng.integers(1, N, size=6))
+    edges = [0, *cuts, N]
+    return [(0, N), (0, N // 3), (N // 3, N), (0, 1), (N - 1, N),
+            *zip(edges[:-1], edges[1:])]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_nbody_kernel_matches_plain(cuda, dtype):
-    p = _randn(1000, 3, seed=7).to(cuda, dtype)
-    full = nbody_forces_rows(p, 0, 1000)
-    for lo, hi in [(0, 1000), (0, 333), (333, 1000), (999, 1000)]:
+@pytest.mark.parametrize("N", [1000, 5000])
+def test_nbody_kernel_matches_plain(cuda, dtype, N):
+    """Each split's rows are bitwise those of the full-range launch: a row's
+    sum order depends on N alone.  N = 5000 has full tiles and a ragged
+    one."""
+    p = _randn(N, 3, seed=7).to(cuda, dtype)
+    full = nbody_forces_rows(p, 0, N)
+    for lo, hi in _splits(N, seed=N):
         got = nbody_forces_rows(p, lo, hi)
         err = (got - nbody_forces_rows_plain(p, lo, hi)).abs().float()
         # f32 sums of N terms in two orders: relative to the terms' scale
         assert (err <= 1e-6 + 1e-4 * _term_magnitudes(p, lo, hi)).all()
-        assert torch.equal(got, full[lo:hi])
+        assert torch.equal(got, full[lo:hi]), (lo, hi)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -113,12 +128,19 @@ FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
+# (S, T, K, G, hd): hd in {16, 24, 32, 80, 112, 128}; S * G not a multiple of
+# the bf16 kernel's 128-row blocks; T not a multiple of its 128-key tiles;
+# G = 1 (zamba2-7b's shared block has hd 112 and G 1)
+FLASH_SHAPES = [(64, 64, 2, 3, 32), (100, 130, 2, 6, 80), (200, 200, 1, 4, 128),
+                (48, 96, 2, 1, 16), (77, 77, 2, 5, 24), (300, 333, 1, 1, 112),
+                (257, 300, 2, 6, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,T,K,G,hd", [(64, 64, 2, 3, 32),
-                                        (100, 130, 2, 6, 80),
-                                        (200, 200, 1, 4, 128)])
+@pytest.mark.parametrize("S,T,K,G,hd", FLASH_SHAPES)
+# windows smaller than one key tile (32) and larger (200)
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
-                                           (False, None)])
+                                           (True, 200), (False, None)])
 def test_flash_kernel_matches_plain(cuda, dtype, S, T, K, G, hd, causal,
                                     window):
     q = _randn(2, S, K, G, hd, seed=13).to(cuda, dtype)
@@ -131,13 +153,20 @@ def test_flash_kernel_matches_plain(cuda, dtype, S, T, K, G, hd, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_decode_offset(cuda, dtype):
-    q = _randn(1, 64, 2, 2, 32, seed=16).to(cuda, dtype)
-    k = _randn(1, 64, 2, 32, seed=17).to(cuda, dtype)
-    v = _randn(1, 64, 2, 32, seed=18).to(cuda, dtype)
-    part = flash_attention(q[:, 48:].contiguous(), k, v, q_offset=48)
-    full = flash_attention_plain(q, k, v)
-    torch.testing.assert_close(part.float(), full[:, 48:].float(),
+@pytest.mark.parametrize("T,S,G,hd,window", [(64, 16, 2, 32, None),
+                                             (300, 100, 6, 128, None),
+                                             (333, 77, 1, 112, None),
+                                             (300, 130, 3, 80, 96)])
+def test_flash_kernel_decode_offset(cuda, dtype, T, S, G, hd, window):
+    """The last S of T query positions at q_offset T - S (T > S) against the
+    whole run's rows."""
+    q = _randn(1, T, 2, G, hd, seed=16).to(cuda, dtype)
+    k = _randn(1, T, 2, hd, seed=17).to(cuda, dtype)
+    v = _randn(1, T, 2, hd, seed=18).to(cuda, dtype)
+    part = flash_attention(q[:, T - S:].contiguous(), k, v, window=window,
+                           q_offset=T - S)
+    full = flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(part.float(), full[:, T - S:].float(),
                                **FLASH_TOL[dtype])
 
 
