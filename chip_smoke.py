@@ -16,9 +16,9 @@ Phases, each printing one JSON line:
                 kernel's 128-row and 128-key tiles), float32 and bfloat16,
                 causal, windows 32 and 200 and non-causal, and ``q_offset``
                 cases with T > S; B4 at the shapes of
-                ``tests/test_kernels.py``, a ragged s = 1000 and the serving
-                shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), float32 and
-                bfloat16.
+                ``tests/test_kernels.py``, a ragged s = 1000, the serving
+                shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), s = 4096
+                and a near 0, float32 and bfloat16.
 3. reference  - the examples' own small configurations (quickstart N-body,
                 WaveSim 256 x 128) through the port on 2 x 2 against their
                 float64 numpy programs.
@@ -53,7 +53,7 @@ Phases, each printing one JSON line:
 9. timing     - each kernel at the shapes phases 4, 5, 7 and 8 give it, by
                 CUDA events, beside its bound, its plain version, for B3 one
                 PyTorch call (``scaled_dot_product_attention``), and its
-                error against the plain version there; B1's and B3's
+                error against the plain version there; B1's, B3's and B4's
                 achieved TFLOP/s.
 10. profile   - N-body (10 steps), WaveSim (20 steps), one qwen2 serve batch
                 and one mamba2 serve batch under torch.profiler: the
@@ -323,11 +323,14 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
     return cases
 
 
-def ssd_inputs(b, s, h, p, n, dtype, dev, g: torch.Generator):
-    """B4's inputs: x, B, C normal in ``dtype``, a = -softplus(normal) in
-    f32 (a log-decay, as ``tests/test_kernels.py`` draws it)."""
+def ssd_inputs(b, s, h, p, n, dtype, dev, g: torch.Generator,
+               a_scale: float = 1.0):
+    """B4's inputs: x, B, C normal in ``dtype``, a = -a_scale *
+    softplus(normal) in f32 (a log-decay, as ``tests/test_kernels.py``
+    draws it for ``a_scale`` 1)."""
     x = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
-    a = -torch.nn.functional.softplus(torch.randn(b, s, h, generator=g))
+    a = -a_scale * torch.nn.functional.softplus(torch.randn(b, s, h,
+                                                            generator=g))
     B = torch.randn(b, s, n, generator=g).to(dev, dtype)
     C = torch.randn(b, s, n, generator=g).to(dev, dtype)
     return x, a.to(dev), B, C
@@ -345,14 +348,19 @@ def ssd_error_scale(x, a, B, C, chunk: int):
 
 def ssd_cases(dev, g: torch.Generator) -> list[dict]:
     """B4 against its plain version on the card: the shapes of
-    ``tests/test_kernels.py``, a ragged s = 1000 and the serving shape."""
+    ``tests/test_kernels.py``, a ragged s = 1000, the serving shape, 64
+    chunks (s = 4096, the state carried far), a near 0 (decay about 1,
+    the state grows: its f32 tolerance is the tightest) and a chunk of 48,
+    not a multiple of the bf16 kernel's 16-step tiles, with a ragged s."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     cases = []
-    shapes = [(2, 64, 2, 8, 4, 16), (2, 128, 4, 64, 16, 64),
-              (2, 96, 1, 16, 8, 32), (2, 1000, 2, 64, 128, 64), SSD_MAIN]
-    for b, s, h, p, n, chunk in shapes:
+    shapes = [(2, 64, 2, 8, 4, 16, 1.0), (2, 128, 4, 64, 16, 64, 1.0),
+              (2, 96, 1, 16, 8, 32, 1.0), (2, 1000, 2, 64, 128, 64, 1.0),
+              (*SSD_MAIN, 1.0), (1, 4096, 2, 64, 128, 64, 1.0),
+              (2, 2048, 2, 64, 128, 64, 1e-4), (2, 100, 2, 64, 128, 48, 1.0)]
+    for b, s, h, p, n, chunk, a_scale in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            x, a, B, C = ssd_inputs(b, s, h, p, n, dtype, dev, g)
+            x, a, B, C = ssd_inputs(b, s, h, p, n, dtype, dev, g, a_scale)
             y, st = ssd_scan(x, a, B, C, chunk)
             ye, ste = ssd_scan_plain(x, a, B, C, chunk)
             y_scale, st_scale = ssd_error_scale(x, a, B, C, chunk)
@@ -361,7 +369,7 @@ def ssd_cases(dev, g: torch.Generator) -> list[dict]:
             e["state"] = errors(st, ste, "ssd_scan.float32", st_scale)
             e["ok"] = e["ok"] and e["state"]["ok"]
             cases.append({"kernel": "ssd_scan", "shape": [b, s, h, p, n, chunk],
-                          "dtype": str(dtype), **e})
+                          "a_scale": a_scale, "dtype": str(dtype), **e})
     return cases
 
 
@@ -918,7 +926,8 @@ def ssd_timing(dev, g: torch.Generator) -> dict:
             "library_ms": None, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "share_of_bound": bound_ms / ms, "shape": list(SSD_MAIN),
-            "dtype": "bfloat16", "flops": flops, "bytes": nbytes, **e}
+            "dtype": "bfloat16", "flops": flops, "tflops": flops / ms / 1e9,
+            "bytes": nbytes, **e}
 
 
 def device_activity(run) -> dict:

@@ -133,7 +133,10 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     ``chunk`` up to 64 and ``n`` up to 128; any ``s``.  The kernel keeps the
     products and the carried state in f32 and rounds ``h_prev`` to ``x``'s
     dtype before the ``C h_prev`` term, as ``ssd_chunked`` (the function the
-    JAX model runs) does; the TPU kernel keeps it in f32.  Against
+    JAX model runs) does; the TPU kernel keeps it in f32.  In bfloat16 the
+    products run on the tensor cores, each f32 operand split into bf16
+    terms (two for the scores, three for the state update), so the state
+    keeps the f32 tolerance.  Against
     :func:`ssd_scan_plain` on the same inputs: 2e-4 in f32 (sums in another
     order, ``tests/test_kernels.py``'s tolerance); in bf16, one bf16 step of
     ``y`` (both round the same f32 value of ``y`` once, and the f32 values

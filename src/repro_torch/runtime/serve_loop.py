@@ -61,8 +61,9 @@ class ServeLoop:
         return req
 
     def _take_batch(self) -> list[Request]:
+        # one request always, whatever max_batch says (as the reference does)
         out = []
-        while len(out) < self.max_batch:
+        while not out or len(out) < self.max_batch:
             try:
                 out.append(self.queue.get_nowait())
             except queue.Empty:

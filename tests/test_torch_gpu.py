@@ -207,29 +207,40 @@ def test_reduced_serve_loop_on_card_matches_cpu(cuda):
     assert outs[1] == outs[0]
 
 
-def _ssd_inputs(b, s, h, p, n, dtype, cuda, seed):
+def _ssd_inputs(b, s, h, p, n, dtype, cuda, seed, a_scale=1.0):
     x = _randn(b, s, h, p, seed=seed).to(cuda, dtype)
-    a = -torch.nn.functional.softplus(_randn(b, s, h, seed=seed + 1)).to(cuda)
+    a = -a_scale * torch.nn.functional.softplus(_randn(b, s, h, seed=seed + 1))
+    a = a.to(cuda)
     B = _randn(b, s, n, seed=seed + 2).to(cuda, dtype)
     C = _randn(b, s, n, seed=seed + 3).to(cuda, dtype)
     return x, a, B, C
 
 
-# (s, chunk, h, p, n): tests/test_kernels.py's shapes, then ragged ones
-SSD_SHAPES = [(64, 16, 2, 8, 4), (128, 64, 4, 64, 16), (96, 32, 1, 16, 8),
-              (1000, 64, 2, 16, 8), (77, 16, 3, 64, 128)]
+# (s, chunk, h, p, n, a_scale): tests/test_kernels.py's shapes, then ragged
+# ones (s off the chunk for chunk 16, 32 and 64), n = 64 and 24 (off the
+# tensor cores' 16), p = 8 and 48 (off the kernel's 32-row p-slice), 64
+# chunks (the state carried far), a near 0 (decay about 1: the state
+# grows, and its f32 tolerance is the tightest), and chunks of 48 and 24,
+# not multiples of the bf16 kernel's 16-step tiles
+SSD_SHAPES = [(64, 16, 2, 8, 4, 1.0), (128, 64, 4, 64, 16, 1.0),
+              (96, 32, 1, 16, 8, 1.0), (1000, 64, 2, 16, 8, 1.0),
+              (77, 16, 3, 64, 128, 1.0), (100, 32, 2, 64, 64, 1.0),
+              (130, 64, 2, 8, 24, 1.0), (70, 64, 2, 48, 32, 1.0),
+              (4096, 64, 1, 64, 128, 1.0), (1000, 64, 2, 64, 128, 1e-4),
+              (100, 48, 2, 64, 128, 1.0), (50, 24, 2, 8, 24, 1.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,chunk,h,p,n", SSD_SHAPES)
-def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, n):
+@pytest.mark.parametrize("s,chunk,h,p,n,a_scale", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, n, a_scale):
     """f32: tests/test_kernels.py's 2e-4 (sums in another order).  bf16: both
     round the f32 value of y once, so one bf16 step (up to 2^-7 of |y|)
     where the sums fall on two sides of a rounding boundary, and h_prev,
     rounded to bf16 by both, can do the same (2^-8 of its product with C);
     both are bounded by 1.2e-2 of the sum of the terms' magnitudes, which
     the plain version computes on |x|, |B|, |C|."""
-    x, a, B, C = _ssd_inputs(2, s, h, p, n, dtype, cuda, seed=30)
+    x, a, B, C = _ssd_inputs(2, s, h, p, n, dtype, cuda, seed=30,
+                             a_scale=a_scale)
     y, st = ssd_scan(x, a, B, C, chunk)
     ye, ste = ssd_scan_plain(x, a, B, C, chunk)
     assert y.dtype == dtype and y.shape == x.shape

@@ -213,6 +213,21 @@ def test_serve_loop_needs_a_card_unless_told_cpu():
         ServeLoop(get_config("qwen2-1.5b", reduced=True))
 
 
+def test_take_batch_takes_one_request_at_max_batch_zero():
+    """Both loops take one request before they look at ``max_batch``: at
+    ``max_batch=0`` a batch holds one request and the rest stay queued."""
+    jcfg, cfg = _configs("qwen2-1.5b")
+    jsl = JaxServeLoop(jcfg, max_batch=0, max_len=MAX_LEN)
+    sl = ServeLoop(cfg, max_batch=0, max_len=MAX_LEN, device="cpu")
+    prompts = [_prompt(cfg.vocab_size, B=1, S=8, seed=i)[0] for i in range(3)]
+    for loop in (jsl, sl):
+        for p in prompts:
+            loop.submit(p, max_new=1)
+    jbatch, batch = jsl._take_batch(), sl._take_batch()
+    assert [r.rid for r in batch] == [r.rid for r in jbatch] == [1]
+    assert sl.queue.qsize() == jsl.queue.qsize() == 2
+
+
 def test_launch_serve_main_runs_on_cpu(capsys):
     serve.main(["--arch", "h2o-danube-1.8b", "--requests", "3",
                 "--max-new", "4", "--max-batch", "2", "--device", "cpu"])
