@@ -19,17 +19,30 @@ Phases, each printing one JSON line:
                 ``tests/test_kernels.py``, a ragged s = 1000, the serving
                 shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), s = 4096
                 and a near 0, float32 and bfloat16.
-3. reference  - the examples' own small configurations (quickstart N-body,
-                WaveSim 256 x 128) through the port on 2 x 2 against their
-                float64 numpy programs.
-4. nbody      - the Listing-1 N-body through ``repro_torch.core.Runtime`` on
-                2 nodes x 2 devices: 2^17 float32 bodies, 20 steps, held
-                against the same 20 steps run without the runtime.
+3. reference  - the examples' own small configurations through the port
+                against float64 numpy programs written here: quickstart
+                N-body and WaveSim 256 x 128 on 2 x 2; examples/nbody.py's
+                energy and momentum reductions (N = 512) on 1 x 1, 2 x 2,
+                3 x 1 and 2 x 2 unfused, E and Mx held bit for bit against
+                math.fsum of numpy's per-body energies and momenta of the
+                port's own gathered state; the WaveSim residual against the
+                fsum of its fields; both memory-budget demos at their
+                example sizes.
+4. nbody      - the N-body through ``repro_torch.core.Runtime`` on 2 nodes x
+                2 devices: 2^17 float32 bodies, 20 steps, E and Mx reduced
+                every 10 steps, held against the same 20 steps run without
+                the runtime (positions bitwise; E and Mx bitwise equal to
+                math.fsum of the per-body energies and momenta computed on
+                the whole range); the same run on 1 x 1 and 3 x 1 gives the
+                same bits; the fused exchange's message count.
 5. wavesim    - WaveSim on 2 x 2: an 8192 x 8192 float32 field, 50 steps,
-                held against 50 whole-field kernel steps without the runtime.
+                held against 50 whole-field kernel steps without the
+                runtime; then the residual, bitwise equal to math.fsum of
+                the squared difference of the gathered fields.
                 Phases 4 and 5 time their steps inside the run: the first
                 step (which also seeds the buffers on the card) and the
-                steps after it, each ended by ``rt.sync()``, then the gather.
+                steps after it, each ended by ``rt.sync()``, then the
+                gather; the energy steps and the residual are timed apart.
 6. serve-reference - reduced qwen2-1.5b, mamba2-370m and zamba2-7b in float32
                 on the card (B3 on; B4 in every Mamba2 layer's prefill)
                 against the same weights served by the port on the CPU, which
@@ -55,11 +68,23 @@ Phases, each printing one JSON line:
                 PyTorch call (``scaled_dot_product_attention``), and its
                 error against the plain version there; B1's, B3's and B4's
                 achieved TFLOP/s.
-10. profile   - N-body (10 steps), WaveSim (20 steps), one qwen2 serve batch
+10. budget    - both memory-budget demos on the card at 50% of their
+                unbudgeted device high-water mark: three phased N-body
+                simulations of 2^17 float32 bodies (1 x 1, 8 steps each,
+                with energies) and three interleaved WaveSims of 2048 x 4096
+                float32 fields (2 x 2, 12 steps each, with residuals).
+                Results bitwise equal to the unbudgeted run, the runtime's
+                device peak under the budget, spills and reloads > 0.
+11. lookahead - RSim (T = 64, W = 2^20, float32, 1 x 2) with lookahead on
+                and off: allocation counts equal to the CPU port's for the
+                same program, fields close to each other and to a float64
+                numpy recurrence.
+12. profile   - N-body (10 steps; and one step plus one energy step),
+                WaveSim (20 steps), one qwen2 serve batch
                 and one mamba2 serve batch under torch.profiler: the
                 device's busy and idle share of the run's wall time, and
                 device time by kernel.
-11. the ``kernels`` summary line, then the device line.
+13. the ``kernels`` summary line, then the device line.
 
 Phases 4, 5, 7 and 8 are the main path: every launch count is set to 0 just
 before each and read just after.
@@ -72,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -93,9 +119,22 @@ PEAK_BYTES_PER_S = 3.35e12
 
 NODES, DEVICES = 2, 2
 NBODY_N, NBODY_STEPS, DT, MASS = 1 << 17, 20, 1e-3, 1.0 / (1 << 17)
+ENERGY_EVERY = 10
 WAVE_H = WAVE_W = 8192
 WAVE_STEPS, WAVE_C = 50, 0.25
 SEED = 11
+# budget demos on the card: bodies and steps of the N-body one (1 x 1),
+# field and steps of the WaveSim one (2 x 2)
+BUDGET_BODIES, BUDGET_NBODY_STEPS = 1 << 17, 8
+BUDGET_FIELD, BUDGET_WAVE_STEPS = (2048, 4096), 12
+# RSim: steps and columns (1 x 2, float32: a 268 MB buffer)
+RSIM_T, RSIM_W = 64, 1 << 20
+# RSim in float32 against the float64 recurrence: row t sums t rows of
+# positive values, each sum within (t - 1) f32 roundings plus two for the
+# halving and the add, and inherits at most the largest relative error of
+# the rows it sums, so row 63 is within sum_{t=1..63} (t + 1) 2^-24 =
+# 1.24e-4 of the recurrence
+RSIM_RTOL = 1.3e-4
 # the serving main path: qwen2-1.5b at full width
 SERVE_ARCH, SERVE_REQUESTS, SERVE_MAX_BATCH = "qwen2-1.5b", 8, 4
 SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
@@ -389,10 +428,150 @@ def wave_step_f64(um: np.ndarray, u: np.ndarray, c: float) -> np.ndarray:
     return un
 
 
+def body_energies_f64(P: np.ndarray, V: np.ndarray, mass: float,
+                      eps: float = 1e-3) -> np.ndarray:
+    """``examples/nbody.py``'s per-body energies in float64 numpy, on all
+    rows."""
+    d = P[None, :, :] - P[:, None, :]
+    r2 = (d * d).sum(-1) + eps
+    pot = -0.5 * mass * mass / np.sqrt(r2)
+    np.fill_diagonal(pot, 0.0)                   # no self-interaction
+    kin = 0.5 * mass * (V ** 2).sum(-1)
+    return kin + pot.sum(1)
+
+
+def reference_energies() -> tuple[bool, dict]:
+    """``examples/nbody.py``'s energy program (N = 512, 8 steps, E and Mx
+    every 4) on 1 x 1, 2 x 2, 3 x 1 and 2 x 2 unfused: positions within
+    1e-4 of the float64 program, E, Mx and positions bit-identical across
+    the grids, E and Mx bitwise equal to math.fsum of numpy's per-body
+    energies and momenta of the port's gathered state, one reduction
+    exchange per energy step fused and two unfused."""
+    from repro_torch.apps import NBody
+    from repro_torch.core import Runtime
+    from repro_torch.core.collective import allreduce_message_count
+    n, steps, every, dt, mass = 512, 8, 4, 0.01, 1.0
+    rng = np.random.default_rng(42)
+    P0, V0 = rng.normal(size=(n, 3)), rng.normal(size=(n, 3)) * 0.1
+    runs = {}
+    for nodes, devices, fusion in ((1, 1, True), (2, 2, True), (3, 1, True),
+                                   (2, 2, False)):
+        with Runtime(nodes, devices, device="cuda",
+                     reduction_fusion=fusion) as rt:
+            sim = NBody(rt, P0, V0, dt, mass)
+            sim.advance(steps, energy_every=every)
+            E, Mx = sim.energy()
+            P, V = sim.gather(), sim.gather_velocities()
+            group = tuple(range(nodes))
+            per = allreduce_message_count(group, group, 1) if nodes > 1 else 0
+            exchanges = rt.comm_stats()["red_messages"] // per if per else 0
+            warnings = rt.warnings
+        runs[f"{nodes}x{devices}" + ("" if fusion else " unfused")] = dict(
+            E=E, Mx=Mx, P=P, V=V, exchanges=exchanges, warnings=warnings,
+            want=0 if nodes == 1 else steps // every * (1 if fusion else 2))
+    P, V = P0, V0
+    for _ in range(steps):
+        V = V + gravity_forces(P, 0, n) * dt
+        P = P + V * dt
+    first = next(iter(runs.values()))
+    e_np = math.fsum(body_energies_f64(first["P"], first["V"], mass))
+    mx_np = math.fsum(mass * first["V"][:, 0])
+    out, ok = {}, True
+    for name, r in runs.items():
+        err = float(np.abs(r["P"] - P).max())
+        same = (bool(np.array_equal(r["P"], first["P"]))
+                and bool(np.array_equal(r["V"], first["V"]))
+                and (r["E"], r["Mx"]) == (first["E"], first["Mx"]))
+        row = {"E": r["E"], "Mx": r["Mx"], "positions_max_abs_err": err,
+               "bit_identical_across_grids": same,
+               "E_equals_numpy_fsum": r["E"] == e_np,
+               "Mx_equals_numpy_fsum": r["Mx"] == mx_np,
+               "exchanges": r["exchanges"], "exchanges_expected": r["want"]}
+        ok &= (err <= 1e-4 * np.abs(P).max() and same and r["E"] == e_np
+               and r["Mx"] == mx_np and r["exchanges"] == r["want"]
+               and not r["warnings"])
+        out[name] = row
+    return ok, {"bodies": n, "steps": steps, "energy_every": every,
+                "E_numpy_fsum": e_np, "Mx_numpy_fsum": mx_np, "runs": out}
+
+
+def budget_check(run, nodes: int, devices: int) -> tuple[list, dict]:
+    """``run(rt)`` on the card unbudgeted, then with the device budget at
+    50% of its device high-water mark; the budgeted results and a report
+    (the check of results is the caller's)."""
+    from repro_torch.core import Runtime
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Runtime(nodes, devices, device="cuda") as rt:
+        base = run(rt)
+        hwm = rt.device_peak_bytes()
+        warnings = list(rt.warnings)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    budget = hwm // 2
+    with Runtime(nodes, devices, device="cuda",
+                 device_memory_budget=budget) as rt:
+        out = run(rt)
+        reports = rt.memory_report()
+        peak = rt.device_peak_bytes()
+        warnings += rt.warnings
+    t2 = time.perf_counter()
+    spills = sum(r["spills"] for r in reports)
+    reloads = sum(r["reloads"] for r in reports)
+    rep = {"grid": [nodes, devices], "unbudgeted_peak_bytes": hwm,
+           "budget_bytes": budget, "device_peak_bytes": peak,
+           "spills": spills, "reloads": reloads,
+           "evictions": sum(r["evictions"] for r in reports),
+           "torch_max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "unbudgeted_s": t1 - t0, "budgeted_s": t2 - t1,
+           "warnings": warnings,
+           "ok": (peak <= budget and spills > 0 and reloads > 0
+                  and not warnings)}
+    return [base, out], rep
+
+
+def nbody_budget(bodies: int, steps: int, dt: float, mass: float,
+                 dtype) -> dict:
+    """``examples/nbody.py``'s budget demo (three phased simulations, 1 x 1)
+    on the card."""
+    from repro_torch.apps.nbody import budget_program
+    inits = []
+    for i in range(3):
+        rng = np.random.default_rng(100 + i)
+        inits.append((rng.normal(size=(bodies, 3)).astype(dtype),
+                      (rng.normal(size=(bodies, 3)) * 0.1).astype(dtype)))
+    (base, out), rep = budget_check(
+        lambda rt: budget_program(rt, inits, steps, dt, mass), 1, 1)
+    rep.update(bodies=bodies, steps=steps, dtype=np.dtype(dtype).name,
+               energies=out, equal_to_unbudgeted=out == base)
+    rep["ok"] = (rep["ok"] and out == base
+                 and all(math.isfinite(e) for e in out))
+    return rep
+
+
+def wave_budget(H: int, W: int, steps: int, dtype) -> dict:
+    """``examples/wavesim.py``'s budget demo (three interleaved simulations,
+    2 x 2) on the card; each residual also against the fsum of its
+    gathered fields."""
+    from repro_torch.apps.wavesim import budget_program
+    (base, out), rep = budget_check(
+        lambda rt: budget_program(rt, H, W, steps, dtype=dtype),
+        NODES, DEVICES)
+    equal = all(np.array_equal(fb, fu) and np.array_equal(pb, pu) and rb == ru
+                for (fb, pb, rb), (fu, pu, ru) in zip(out, base))
+    t0 = time.perf_counter()
+    fsum = [math.fsum(((f - p) ** 2).ravel()) == r for f, p, r in out]
+    rep.update(field=[H, W], steps=steps, dtype=np.dtype(dtype).name,
+               residuals=[r for _, _, r in out], equal_to_unbudgeted=equal,
+               residuals_equal_fsum=fsum, fsum_s=time.perf_counter() - t0)
+    rep["ok"] = rep["ok"] and equal and all(fsum)
+    return rep
+
+
 def phase_reference() -> None:
     """The examples' own small configurations through the port on the card
-    (2 x 2, float64 storage) against their float64 numpy programs."""
-    from repro_torch.apps import run_nbody, run_wave
+    (float64 storage) against their float64 numpy programs."""
+    from repro_torch.apps import WaveSim, run_nbody
     from repro_torch.core import Runtime
     # examples/quickstart.py: N = 1024, 10 steps, seed 42.  The kernel
     # computes forces in f32 (as the TPU kernel does), and close encounters
@@ -407,21 +586,35 @@ def phase_reference() -> None:
         V = V + gravity_forces(P, 0, len(P)) * 0.01
         P = P + V * 0.01
     nbody_err, nbody_tol = float(np.abs(got - P).max()), 1e-4 * np.abs(P).max()
-    # examples/wavesim.py: a 256 x 128 splash, 20 steps, error under 1e-4
+    # examples/wavesim.py: a 256 x 128 splash, 20 steps, error under 1e-4,
+    # and the residual of the two newest fields
     u1 = np.zeros((256, 128))
     u1[124:132, 60:68] = 1.0
     with Runtime(NODES, DEVICES, device="cuda") as rt:
-        gotw = run_wave(rt, u1.copy(), u1, 20, WAVE_C)
+        sim = WaveSim(rt, u1.copy(), u1, WAVE_C)
+        sim.advance(20)
+        sim.residual()
+        gotw, prevw = sim.gather(), sim.gather_previous()
+        res2 = sim.residual_value()
     um, u = u1, u1
     for _ in range(20):
         um, u = u, wave_step_f64(um, u, WAVE_C)
     wave_err = float(np.abs(gotw - u).max())
-    ok = nbody_err <= nbody_tol and wave_err < 1e-4
+    res2_fsum = math.fsum(((gotw - prevw) ** 2).ravel())
+    energies_ok, energies = reference_energies()
+    budget_nbody = nbody_budget(256, 8, 0.01, 1.0, np.float64)
+    budget_wave = wave_budget(128, 64, 12, np.float64)
+    ok = (nbody_err <= nbody_tol and wave_err < 1e-4 and res2 == res2_fsum
+          and energies_ok and budget_nbody["ok"] and budget_wave["ok"])
     emit({"phase": "reference", "ok": ok,
           "nbody": {"bodies": 1024, "steps": 10, "max_abs_err": nbody_err,
                     "tol": nbody_tol},
           "wavesim": {"field": [256, 128], "steps": 20,
-                      "max_abs_err": wave_err, "tol": 1e-4}})
+                      "max_abs_err": wave_err, "tol": 1e-4,
+                      "residual": res2, "residual_equals_fsum":
+                      res2 == res2_fsum},
+          "nbody_energy": energies, "nbody_budget": budget_nbody,
+          "wavesim_budget": budget_wave})
     if not ok:
         raise SystemExit("the examples disagree with their float64 programs")
 
@@ -434,55 +627,126 @@ def reset_launches() -> None:
     flash_attention.launches = ssd_scan.launches = 0
 
 
-def timed_run(sim, steps: int) -> tuple[np.ndarray, dict]:
+def timed_run(sim, steps: int, measure_every: int = 0,
+              measure=None) -> tuple[np.ndarray, dict, list]:
     """Run ``sim`` (an ``NBody`` or a ``WaveSim`` on its runtime) for
     ``steps`` steps; time the first step, the steps after it and the gather,
-    each window ended by a sync."""
+    each window ended by a sync.  With ``measure_every``, ``measure()``
+    follows every step whose count is a multiple of it, outside the steps'
+    windows; what it returns is collected in order."""
     t0 = time.perf_counter()
     sim.advance(1)
     sim.rt.sync()
     t1 = time.perf_counter()
-    sim.advance(steps - 1)
-    sim.rt.sync()
+    steps_s, measured, done = 0.0, [], 1
+    while done < steps:
+        k = steps - done
+        if measure_every:
+            k = min(k, measure_every - done % measure_every)
+        ta = time.perf_counter()
+        sim.advance(k)
+        sim.rt.sync()
+        steps_s += time.perf_counter() - ta
+        done += k
+        if measure_every and done % measure_every == 0:
+            measured.append(measure())
     t2 = time.perf_counter()
     out = sim.gather()
     t3 = time.perf_counter()
-    return out, {"first_step_s": t1 - t0, "steps_s": t2 - t1,
+    return out, {"first_step_s": t1 - t0, "steps_s": steps_s,
                  "gather_s": t3 - t2, "total_s": t3 - t0,
-                 "steps_per_s": (steps - 1) / (t2 - t1)}
+                 "steps_per_s": (steps - 1) / steps_s}, measured
+
+
+def nbody_energy_run(nodes: int, devices: int, P0: np.ndarray,
+                     V0: np.ndarray) -> dict:
+    """``NBODY_STEPS`` steps of the N-body on a grid, E and Mx reduced every
+    ``ENERGY_EVERY`` steps (each reduction timed apart: ``measure()`` then
+    ``rt.sync()``; the gathers of E and Mx come after the window)."""
+    from repro_torch.apps import NBody
+    from repro_torch.core import Runtime
+    from repro_torch.kernels.nbody import nbody_forces_rows
+    with Runtime(nodes, devices, device="cuda") as rt:
+        sim = NBody(rt, P0, V0, DT, MASS)
+
+        def measure():
+            """One energy step, timed (submit, then sync); then E and Mx."""
+            t0 = time.perf_counter()
+            sim.measure()
+            rt.sync()
+            return time.perf_counter() - t0, sim.energy()
+
+        reset_launches()
+        got, times, measured = timed_run(sim, NBODY_STEPS, ENERGY_EVERY,
+                                         measure)
+        launches = nbody_forces_rows.launches
+        times["energy_step_s"] = [t for t, _ in measured]
+        return {"P": got, "energies": [e for _, e in measured],
+                "times": times,
+                "launches": launches, "comm": rt.comm_stats(),
+                "instructions": rt.total_instructions(),
+                "warnings": list(rt.warnings)}
 
 
 def phase_nbody(dev) -> dict:
-    from repro_torch.apps import NBody
-    from repro_torch.core import Runtime
+    from repro_torch.apps import body_energies
+    from repro_torch.core.collective import allreduce_message_count
     from repro_torch.kernels.nbody import nbody_forces_rows
     rng = np.random.default_rng(SEED)
     P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
     V0 = (rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1)
-    with Runtime(NODES, DEVICES, device="cuda") as rt:
-        reset_launches()
-        got, times = timed_run(NBody(rt, P0, V0, DT, MASS), NBODY_STEPS)
-        launches = nbody_forces_rows.launches
-        comm = rt.comm_stats()
-        instructions = rt.total_instructions()
+    main = nbody_energy_run(NODES, DEVICES, P0, V0)
+    launches = main["launches"]
+    others = {f"{n}x{d}": nbody_energy_run(n, d, P0, V0)
+              for n, d in ((1, 1), (3, 1))}
     # the same steps without the runtime: B1 on the whole array, the same
-    # torch update expressions
+    # torch update expressions; E and Mx as math.fsum of the per-body
+    # energies and momenta computed on the whole range
     P, V = torch.from_numpy(P0).to(dev), torch.from_numpy(V0).to(dev)
-    for _ in range(NBODY_STEPS):
+    exp_energies = []
+    t0 = time.perf_counter()
+    for s in range(1, NBODY_STEPS + 1):
         F = nbody_forces_rows(P, 0, NBODY_N)
         V = V + MASS * F * DT
         P = P + V * DT
+        if s % ENERGY_EVERY == 0:
+            e = body_energies(P, V, 0, NBODY_N, MASS).cpu().numpy()
+            mx = (MASS * V[:, 0]).cpu().numpy()
+            exp_energies.append((math.fsum(e), math.fsum(mx)))
+    runtime_free_s = time.perf_counter() - t0
     exp = P.cpu().numpy()
+    got = main["P"]
     identical = bool(np.array_equal(got, exp))
     finite = bool(np.isfinite(got).all()) and got.shape == (NBODY_N, 3)
-    ok = identical and finite and launches > 0
+    energies_equal = main["energies"] == exp_energies
+    grids_equal = {k: bool(np.array_equal(r["P"], got))
+                   and r["energies"] == main["energies"]
+                   for k, r in others.items()}
+    group = tuple(range(NODES))
+    want_msgs = (NBODY_STEPS // ENERGY_EVERY
+                 * allreduce_message_count(group, group, 1))
+    warnings = main["warnings"] + [w for r in others.values()
+                                   for w in r["warnings"]]
+    ok = (identical and finite and launches > 0 and energies_equal
+          and all(grids_equal.values())
+          and main["comm"]["red_messages"] == want_msgs and not warnings)
     res = {"phase": "nbody", "ok": ok, "grid": [NODES, DEVICES],
            "bodies": NBODY_N, "steps": NBODY_STEPS, "dtype": "float32",
+           "energy_every": ENERGY_EVERY,
            "bit_identical_to_runtime_free": identical,
            "max_abs_diff": float(np.abs(got - exp).max()),
-           "launches": launches, **times,
-           "instructions": instructions, "comm_bytes": comm["bytes"],
-           "comm_messages": comm["messages"]}
+           "energies": main["energies"],
+           "energies_equal_runtime_free_fsum": energies_equal,
+           "grids_bit_identical": grids_equal,
+           "red_messages": main["comm"]["red_messages"],
+           "red_messages_expected": want_msgs,
+           "launches": launches, **main["times"],
+           "other_grids_s": {k: r["times"]["total_s"]
+                             for k, r in others.items()},
+           "runtime_free_s": runtime_free_s,
+           "instructions": main["instructions"],
+           "comm_bytes": main["comm"]["bytes"],
+           "comm_messages": main["comm"]["messages"], "warnings": warnings}
     emit(res)
     if not ok:
         raise SystemExit("N-body phase failed")
@@ -498,30 +762,100 @@ def phase_wave(dev) -> dict:
     u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
     torch.cuda.reset_peak_memory_stats()
     with Runtime(NODES, DEVICES, device="cuda") as rt:
+        sim = WaveSim(rt, u0, u1, WAVE_C)
         reset_launches()
-        got, times = timed_run(WaveSim(rt, u0, u1, WAVE_C), WAVE_STEPS)
+        got, times, _ = timed_run(sim, WAVE_STEPS)
         launches = wave_step_rows.launches
         comm = rt.comm_stats()
         device_peak = rt.device_peak_bytes()
+        # the residual of the two newest fields, outside the step window
+        t0 = time.perf_counter()
+        sim.residual()
+        rt.sync()
+        residual_s = time.perf_counter() - t0
+        res2 = sim.residual_value()
+        prev = sim.gather_previous()
+        warnings = list(rt.warnings)
     torch_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    res2_fsum = math.fsum(((got - prev) ** 2).ravel())
+    fsum_s = time.perf_counter() - t0
     um, u = torch.from_numpy(u0).to(dev), torch.from_numpy(u1).to(dev)
     for _ in range(WAVE_STEPS):
         um, u = u, wave_step_rows(um, u, 0, WAVE_H, WAVE_C)
     exp = u.cpu().numpy()
     identical = bool(np.array_equal(got, exp))
     finite = bool(np.isfinite(got).all()) and got.shape == (WAVE_H, WAVE_W)
-    ok = identical and finite and launches > 0
+    ok = (identical and finite and launches > 0 and res2 == res2_fsum
+          and not warnings)
     res = {"phase": "wavesim", "ok": ok, "grid": [NODES, DEVICES],
            "field": [WAVE_H, WAVE_W], "steps": WAVE_STEPS, "dtype": "float32",
            "bit_identical_to_runtime_free": identical,
            "max_abs_diff": float(np.abs(got - exp).max()),
            "launches": launches, **times,
+           "residual": res2, "residual_equals_fsum": res2 == res2_fsum,
+           "residual_s": residual_s, "residual_fsum_s": fsum_s,
            "comm_bytes_sent": comm["bytes"], "comm_messages": comm["messages"],
            "device_peak_bytes": device_peak,
-           "torch_max_memory_allocated": torch_peak}
+           "torch_max_memory_allocated": torch_peak, "warnings": warnings}
     emit(res)
     if not ok:
         raise SystemExit("WaveSim phase failed")
+    return res
+
+
+def phase_budget() -> dict:
+    """Both budget demos on the card at sizes where the spills move real
+    bytes."""
+    nbody = nbody_budget(BUDGET_BODIES, BUDGET_NBODY_STEPS, DT, MASS,
+                         np.float32)
+    wave = wave_budget(*BUDGET_FIELD, BUDGET_WAVE_STEPS, np.float32)
+    ok = nbody["ok"] and wave["ok"]
+    res = {"phase": "budget", "ok": ok, "nbody": nbody, "wavesim": wave}
+    emit(res)
+    if not ok:
+        raise SystemExit("budget phase failed")
+    return res
+
+
+def phase_lookahead() -> dict:
+    """RSim on the card with lookahead on and off, against the CPU port's
+    allocation counts for the same program and a float64 recurrence."""
+    from repro_torch.apps import run_rsim
+    runs = {}
+    for device in ("cuda", "cpu"):
+        for la in (True, False):
+            t0 = time.perf_counter()
+            field, allocs, stats = run_rsim(RSIM_T, RSIM_W, lookahead=la,
+                                            dtype=np.float32, device=device)
+            runs[(device, la)] = dict(
+                field=field, allocs=allocs, wall_s=time.perf_counter() - t0,
+                flushes=stats.flushes,
+                commands_queued_peak=stats.commands_queued_peak)
+    rec = np.empty(RSIM_T)
+    total = 0.0
+    for t in range(RSIM_T):
+        rec[t] = 1.0 if t == 0 else total * 0.5 + 1.0
+        total += rec[t]
+    on, off = runs[("cuda", True)]["field"], runs[("cuda", False)]["field"]
+    rel = float((np.abs(on - rec[:, None]) / rec[:, None]).max())
+    counts = {f"{d}/{'on' if la else 'off'}": r["allocs"]
+              for (d, la), r in runs.items()}
+    ok = (counts["cuda/on"] == counts["cpu/on"]
+          and counts["cuda/off"] == counts["cpu/off"]
+          and counts["cuda/on"] < counts["cuda/off"]
+          and bool(np.allclose(on, off, rtol=1e-6, atol=0))
+          and rel <= RSIM_RTOL and on.shape == (RSIM_T, RSIM_W))
+    res = {"phase": "lookahead", "ok": ok, "T": RSIM_T, "W": RSIM_W,
+           "grid": [1, 2], "dtype": "float32", "allocations": counts,
+           "on_off_bitwise": bool(np.array_equal(on, off)),
+           "max_rel_err_vs_recurrence": rel, "rtol": RSIM_RTOL,
+           **{f"{d}_{'on' if la else 'off'}": {k: v for k, v in r.items()
+                                                if k != "field"}
+              for (d, la), r in runs.items()}}
+    emit(res)
+    if not ok:
+        raise SystemExit("lookahead phase failed")
     return res
 
 
@@ -964,14 +1298,22 @@ def device_activity(run) -> dict:
 
 def phase_profile(dev, models) -> None:
     """``models``: (name, cfg, model) of each serving path; one batch each."""
-    from repro_torch.apps import run_nbody, run_wave
+    from repro_torch.apps import NBody, run_nbody, run_wave
     from repro_torch.core import Runtime
     rng = np.random.default_rng(SEED + 3)
     P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
     V0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1
     u0 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
     u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+
+    def nbody_energy(rt):
+        """One step, then one energy step (E and Mx)."""
+        sim = NBody(rt, P0, V0, DT, MASS)
+        sim.advance(1, energy_every=1)
+        return sim.energy()
+
     runs = {"nbody": lambda rt: run_nbody(rt, P0, V0, 10, DT, MASS),
+            "nbody_energy": nbody_energy,
             "wavesim": lambda rt: run_wave(rt, u0, u1, 20, WAVE_C)}
     out = {}
     for name, run in runs.items():
@@ -992,7 +1334,8 @@ def phase_profile(dev, models) -> None:
     ok = all(r["device_events"] > 0 for r in out.values())
     emit({"phase": "profile", "ok": ok,
           "note": "N-body and WaveSim wall includes buffer seeding and the "
-                  "final gather",
+                  "final gather; nbody_energy is one step and one energy "
+                  "step",
           "nbody_steps": 10, "wavesim_steps": 20,
           "serve_batches": f"one batch of {SERVE_MAX_BATCH} requests, "
                            f"{SERVE_MAX_NEW} new tokens each, per model",
@@ -1016,6 +1359,8 @@ def main() -> int:
     phase_reference()
     nbody = phase_nbody(dev)
     wave = phase_wave(dev)
+    phase_budget()
+    phase_lookahead()
     phase_serve_reference(dev)
     # full width: f32 weights drawn on the card from SEED, bf16 activations
     serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),

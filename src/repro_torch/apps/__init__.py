@@ -1,6 +1,10 @@
-"""The paper's applications on the port: Listing-1 N-body and WaveSim."""
+"""The paper's applications on the port: the N-body programs (Listing 1,
+energy and momentum reductions, the budget demo), WaveSim (with its
+residual and budget demo) and RSim."""
 
-from .nbody import NBody, run_nbody
+from .nbody import NBody, body_energies, run_nbody
+from .rsim import run_rsim
 from .wavesim import WaveSim, run_wave
 
-__all__ = ["NBody", "WaveSim", "run_nbody", "run_wave"]
+__all__ = ["NBody", "WaveSim", "body_energies", "run_nbody", "run_rsim",
+           "run_wave"]

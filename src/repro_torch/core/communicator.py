@@ -1,7 +1,9 @@
 """Communicator: peer-to-peer transfers + pilot messages (paper §3.4/§4.2).
 
 Port of ``src/repro/core/communicator.py``: payloads carry torch tensors and
-the landing paths copy into the executor's store tensors.
+the landing paths copy into the executor's store tensors.  Reduction partials
+travel as host numpy arrays (the executor keeps every reduction scratch on
+the host) and land into numpy slots and slot ranges.
 
 Faithfully models the MPI-level protocol: senders transmit *pilot messages*
 (source, transfer id, box, message id) ahead of the payload; the receiver's
@@ -34,6 +36,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .faults import FaultPlan, TransportError
@@ -50,7 +53,7 @@ class Payload:
     # collective rounds (see instruction_graph.Pilot / DESIGN.md §9)
     transfer_id: tuple
     box: Optional[Box] = None
-    data: Optional[torch.Tensor] = None
+    data: Optional[torch.Tensor | np.ndarray] = None
     # collective rounds ship ONE packed message of (key, tensor) fragments:
     # key = (member, slot) for reduction partials, a buffer-space Box for
     # region blocks — matching what the peer's COLL_RECV expects
@@ -61,12 +64,15 @@ class Payload:
 
     def nbytes(self) -> int:
         if self.fragments is not None:
-            return sum(_nbytes(d) for _, d in self.fragments)
-        return _nbytes(self.data) if self.data is not None else 0
+            return sum(nbytes_of(d) for _, d in self.fragments)
+        return nbytes_of(self.data) if self.data is not None else 0
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    """The bytes the reference's ``ndarray.nbytes`` counts for the same data."""
+def nbytes_of(t: torch.Tensor | np.ndarray) -> int:
+    """The bytes the reference's ``ndarray.nbytes`` counts for the same data
+    (8 a slot for an ``object`` array of exact-sum accumulators)."""
+    if isinstance(t, np.ndarray):
+        return t.nbytes
     return t.numel() * t.element_size()
 
 
@@ -464,13 +470,17 @@ class ReceiveArbiter:
                 _PendingReceive(instr=instr.split_parent, remaining=Region.empty(),
                                 awaits=[instr]))
 
-    def _put(self, dst: torch.Tensor, data: torch.Tensor) -> None:
-        """Copy landed data into a store tensor view.
+    def _put(self, dst, data) -> None:
+        """Copy landed data into a store tensor view, or into a view of a
+        host reduction scratch (numpy).
 
         A copy into device memory runs on this (executor) thread's current
         stream, which lane streams do not order against; ``step`` waits for
         it before it reports any receive complete, so the next kernel on a
         lane stream never reads stale rows."""
+        if isinstance(dst, np.ndarray):
+            dst[...] = data.reshape(dst.shape)
+            return
         dst.copy_(data.reshape(dst.shape))
         if dst.is_cuda:
             self._landed_on.add(dst.device)

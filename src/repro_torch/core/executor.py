@@ -16,8 +16,18 @@ loop.  The executor itself does no data processing — it only routes.
 Port of ``src/repro/core/executor.py``: the store holds torch tensors, memory
 ``M2+d`` lives on ``cuda:{d % device_count}`` (every simulated device keeps its
 own memory id and streams, even when they share one card), ``M1`` is pinned
-host memory and ``M0`` plain host memory.  Reductions wait for a later slice
-of the port and raise ``NotImplementedError``.
+host memory and ``M0`` plain host memory.
+
+Reductions keep the reference's value semantics (``reduction.py`` is a
+copy): every reduction accumulator scratch is a host numpy array in the
+store, whatever memory id the instruction graph gives it.  Exact-sum
+accumulators are ``object`` arrays of Python ints, which no card can hold;
+keeping the ``max``/``min``/``prod``/custom scratches on the host too keeps
+one code path.  A kernel's contribution is brought to the host by its
+:class:`ReductionView` on the lane's stream, after the kernel's own work,
+and ``LOCAL_REDUCE`` folds host partials, as the reference models it (a
+fused device-to-host copy plus a combine).  Byte accounting counts a
+scratch as ``ndarray.nbytes``, as the reference does.
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ import torch
 from .allocation import PINNED_HOST, Allocation, is_device_memory
 from .backend import Backend, InOrderQueue, WorkItem
 from .buffer import AccessMode
-from .communicator import Communicator, Payload, ReceiveArbiter
+from .communicator import (Communicator, Payload, ReceiveArbiter,
+                           nbytes_of)
 from .faults import (EpochTimeoutError, FaultPlan, InjectedCrash, NodeFailure,
                      PeerAborted)
 from .instruction_graph import (AccessorBinding, EpochAbort, Instruction,
@@ -42,20 +53,28 @@ from .observability import WAIT_CLASSES, WAIT_DEP, WAIT_OF, WAIT_QUEUE
 from .region import Box, Region
 
 
-REDUCTIONS_LATER = "reductions: later slice of the port"
-
-
 class BoundsError(RuntimeError):
     """Raised after a kernel when accesses fell outside the declared region."""
 
 
 def torch_dtype(dtype) -> torch.dtype:
     """The torch dtype of a numpy dtype (``Allocation.dtype``)."""
-    dt = np.dtype(dtype)
-    if dt == np.dtype(object):
-        # only the exact-sum reduction accumulators are object arrays
-        raise NotImplementedError(REDUCTIONS_LATER)
-    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def host_array(values) -> np.ndarray:
+    """``values`` as a host numpy array for the reduction value semantics.
+
+    A tensor on a card is copied to the host on the current stream, which
+    waits for the work queued before it (a kernel's contribution on its
+    lane's stream).  Integer dtypes stay integers, so exact sums of int64
+    stay exact; bfloat16 and float16 widen to float32, which is exact."""
+    if not isinstance(values, torch.Tensor):
+        return np.asarray(values)
+    t = values.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
 
 
 class BufferView:
@@ -143,6 +162,26 @@ class BufferView:
             if isinstance(i, slice):
                 shape.append(box.shape[d])
         return tuple(shape) if shape else ()
+
+
+class ReductionView:
+    """Kernel-facing reduction output (paper §2.2).
+
+    Wraps the identity-filled accumulator scratch of one device chunk (a
+    host numpy array); the kernel calls :meth:`contribute` with per-item
+    contribution values (for a scalar reduction: any array of
+    contributions), as a tensor on its device or an array.  The runtime owns
+    the partial/exchange/combine pipeline — the kernel never sees peer data.
+    """
+
+    __slots__ = ("acc", "op")
+
+    def __init__(self, acc: np.ndarray, op):
+        self.acc = acc
+        self.op = op
+
+    def contribute(self, values) -> None:
+        self.op.contribute(self.acc, host_array(values))
 
 
 class Executor:
@@ -276,9 +315,9 @@ class Executor:
             InstructionType.RELOAD: self._exec_copy,
             InstructionType.SEND: self._exec_send,
             InstructionType.COLL_SEND: self._exec_coll_send,
-            InstructionType.FILL_IDENTITY: self._exec_reduction,
-            InstructionType.LOCAL_REDUCE: self._exec_reduction,
-            InstructionType.GLOBAL_REDUCE: self._exec_reduction,
+            InstructionType.FILL_IDENTITY: self._exec_fill_identity,
+            InstructionType.LOCAL_REDUCE: self._exec_local_reduce,
+            InstructionType.GLOBAL_REDUCE: self._exec_global_reduce,
             InstructionType.DEVICE_KERNEL: self._exec_kernel,
             InstructionType.HOST_TASK: self._exec_kernel,
         }
@@ -688,13 +727,9 @@ class Executor:
             # Tracer opts out (spans derive from completion records)
             self._issue_tracer.issue(self.node, instr)
         it = instr.itype
-        if it == InstructionType.GATHER_RECEIVE:
-            # fails like a lane: through the sink, surfacing at sync()
-            self.backend.sink.push(
-                instr, NotImplementedError(REDUCTIONS_LATER), 0.0)
-            return
         if it in (InstructionType.RECEIVE, InstructionType.SPLIT_RECEIVE,
-                  InstructionType.AWAIT_RECEIVE, InstructionType.COLL_RECV):
+                  InstructionType.AWAIT_RECEIVE, InstructionType.GATHER_RECEIVE,
+                  InstructionType.COLL_RECV):
             if self._obs:
                 instr._start_t = t      # arbiter-handled: no lane dequeue
             self.arbiter.begin(instr)       # completion via arbiter polling
@@ -911,11 +946,16 @@ class Executor:
 
     def _exec_alloc(self, instr: Instruction) -> None:
         a = instr.allocation
-        arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
-                          device=self._mem_device(a.mid),
-                          pin_memory=self._cuda and a.mid == PINNED_HOST)
+        if a.bid is None:
+            # a reduction accumulator scratch (the only buffer-less
+            # allocations): a host array whatever its memory id
+            arr = np.empty(a.box.shape, dtype=np.dtype(a.dtype))
+        else:
+            arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
+                              device=self._mem_device(a.mid),
+                              pin_memory=self._cuda and a.mid == PINNED_HOST)
         self.store[a.aid] = arr
-        self._account(a.mid, arr.numel() * arr.element_size())
+        self._account(a.mid, nbytes_of(arr))
 
     def _exec_free(self, instr: Instruction) -> None:
         # A device tensor may have been allocated on one lane's stream and
@@ -927,7 +967,7 @@ class Executor:
         a = instr.allocation
         arr = self.store.pop(a.aid, None)
         if arr is not None:
-            self._account(a.mid, -arr.numel() * arr.element_size())
+            self._account(a.mid, -nbytes_of(arr))
 
     def _exec_copy(self, instr: Instruction) -> None:
         src, dst, box = instr.src_alloc, instr.dst_alloc, instr.copy_box
@@ -940,11 +980,14 @@ class Executor:
         darr[dsl].copy_(sarr[ssl], non_blocking=True)
 
     @staticmethod
-    def _snapshot(view: torch.Tensor) -> torch.Tensor:
+    def _snapshot(view):
         """A private copy of ``view`` for the wire, complete on return.
 
         The peer may land it as soon as ``isend`` posts it, so a copy on a
-        card must have finished first."""
+        card must have finished first.  Reduction partials are host arrays
+        and copy as such."""
+        if isinstance(view, np.ndarray):
+            return view.copy()
         out = view.clone(memory_format=torch.contiguous_format)
         if out.is_cuda:
             torch.cuda.current_stream(out.device).synchronize()
@@ -981,18 +1024,97 @@ class Executor:
             source=self.node, msg_id=instr.msg_id,
             transfer_id=instr.transfer_id, fragments=frags))
 
-    def _exec_reduction(self, instr: Instruction) -> None:
-        raise NotImplementedError(REDUCTIONS_LATER)
+    def _exec_fill_identity(self, instr: Instruction) -> None:
+        red = instr.reduction
+        arr = self._arr(instr.allocation)
+        arr[...] = red.op.identity_acc(arr.shape, red.buffer.dtype)
+
+    def _exec_local_reduce(self, instr: Instruction) -> None:
+        """Fold the device partials into this node's partial accumulator.
+
+        Every partial is a host array already (each kernel's contribution
+        was brought to the host by its view), so this is the reference's
+        fold; the combine-tree shape is identical.
+        """
+        red = instr.reduction
+        op = red.op
+        if instr.slot_range is not None:
+            # allreduce fold-on-receive: fold the landed slot-range
+            # fragment into the flat accumulator in place (the combine is
+            # order-free, so the halving tree never changes a bit)
+            lo, hi = instr.slot_range
+            dst = self._arr(instr.dst_alloc)
+            src = self._arr(instr.reduce_srcs[0])
+            dst[lo:hi] = op.combine(dst[lo:hi], src) if instr.accumulate \
+                else src
+            return
+        acc = None
+        for src in instr.reduce_srcs:
+            arr = self._arr(src)
+            acc = arr.copy() if acc is None else op.combine(acc, arr)
+        if acc is None:
+            acc = op.identity_acc(red.buffer.shape, red.buffer.dtype)
+        if instr.dst_slot is not None:   # collective mode: own staging slot
+            self._arr(instr.dst_alloc)[instr.dst_slot] = acc
+        else:
+            # destination may be the buffer-shaped node partial or the
+            # allreduce-mode flat slot-space accumulator
+            darr = self._arr(instr.dst_alloc)
+            darr[...] = acc.reshape(darr.shape)
+
+    def _exec_global_reduce(self, instr: Instruction) -> None:
+        """Fold all rank partials in canonical node order into the buffer.
+
+        ``participants`` is the replicated-deterministic fold order; with the
+        exact-sum accumulator the result is additionally partition
+        independent (see reduction.py).  ``include_current`` lifts the
+        buffer's previous (replicated) contents into accumulator space and
+        folds them in exactly once, after the partials.  The result is
+        written into the buffer's tensor (host memory, pinned with a card)
+        before this returns, so the device lanes that copy it later read
+        the finished value.
+        """
+        red = instr.reduction
+        op, buf = red.op, red.buffer
+        gather_arr = (self._arr(instr.src_alloc)
+                      if instr.src_alloc is not None else None)
+        if instr.prefolded:
+            # allreduce mode: the flat accumulator already holds the fully
+            # folded value for every slot — lift/finalize only
+            acc = gather_arr.reshape(buf.shape)
+        else:
+            own = (self._arr(instr.reduce_srcs[0])
+                   if instr.reduce_srcs else None)
+            acc = None
+            for s in instr.participants:
+                if instr.slot_all:      # collective mode: own slot included
+                    part = gather_arr[s]
+                else:
+                    part = own if s == self.node else gather_arr[s]
+                acc = part.copy() if acc is None else op.combine(acc, part)
+            if acc is None:                  # no participants: identity
+                acc = op.identity_acc(buf.shape, buf.dtype)
+        dst = instr.dst_alloc
+        darr = self._arr(dst)
+        box = buf.full_box
+        sl = tuple(slice(a - o, b - o) for a, b, o in
+                   zip(box.min, box.max, dst.box.min))
+        view = darr[sl]
+        if instr.include_current:
+            acc = op.combine(acc, op.lift(host_array(view), buf.dtype))
+        out = np.ascontiguousarray(op.finalize(acc, buf.dtype))
+        view.copy_(torch.from_numpy(out).reshape(view.shape))
 
     def _exec_kernel(self, instr: Instruction) -> None:
         if self._slow_s:
             time.sleep(self._slow_s)     # injected straggler (fault plan)
-        if instr.red_bindings:
-            raise NotImplementedError(REDUCTIONS_LATER)
         views = []
         for b in instr.bindings:
             arr = self._arr(b.allocation)
             views.append(BufferView(arr, b.allocation, b, self.check_bounds))
+        for rb in instr.red_bindings:
+            views.append(ReductionView(self._arr(rb.allocation),
+                                       rb.reduction.op))
         if instr.kernel_fn is not None:
             instr.kernel_fn(instr.chunk, *views)
         if self.check_bounds:

@@ -510,7 +510,19 @@ class Runtime:
     def memory_report(self) -> list[dict]:
         """Per-node memory-layer report: the scheduler-side compile-time
         model (budgets, modeled peaks, spill/reload/eviction counters) and
-        the executor-side real materialized-byte peaks per memory id."""
+        the executor-side real materialized-byte peaks per memory id.
+
+        With a card, ``cuda_allocated`` and ``cuda_max_allocated`` add
+        PyTorch's own counts (``torch.cuda.memory_allocated`` and
+        ``max_memory_allocated``, summed over the cards) beside
+        ``real_peak``.  They are process-wide (every node and simulated
+        device shares the cards, and the kernels' temporaries count too),
+        so a budget is held by ``real_peak`` alone."""
+        cuda = None
+        if self.device.type == "cuda":
+            cards = range(torch.cuda.device_count())
+            cuda = (sum(torch.cuda.memory_allocated(c) for c in cards),
+                    sum(torch.cuda.max_memory_allocated(c) for c in cards))
         out = []
         for n in range(self.num_nodes):
             mm = self.schedulers[n].idag.mem
@@ -519,6 +531,8 @@ class Runtime:
             rep["node"] = n
             rep["real_used"] = dict(ex.mem_used)
             rep["real_peak"] = dict(ex.mem_peak)
+            rep["cuda_allocated"], rep["cuda_max_allocated"] = \
+                cuda if cuda is not None else (None, None)
             rep["leaked_threads"] = ex.leaked_threads
             out.append(rep)
         return out

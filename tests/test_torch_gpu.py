@@ -7,14 +7,17 @@ Run on a machine with the card (no JAX needed there):
 
 import copy
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.apps import run_nbody, run_wave
+from repro_torch.apps import (NBody, WaveSim, body_energies, run_nbody,
+                              run_rsim, run_wave)
 from repro_torch.configs import get_config
-from repro_torch.core import Runtime
+from repro_torch.core import (Box, Runtime, all_range, one_to_one, read,
+                              read_write, reduction)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import build_model
@@ -295,3 +298,168 @@ def test_reduced_ssm_serve_loop_on_card_matches_cpu(cuda, arch):
     assert ssd_scan.launches == n0 + 2 * cfg.num_layers
     assert flash_attention.launches == f0 + 2 * groups
     assert outs[1] == outs[0]
+
+
+# -- reductions, budgets and lookahead on the card -----------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int64,
+                                   torch.bfloat16])
+def test_reduction_contributions_from_card_tensors(cuda, dtype):
+    """Kernels contribute tensors on the card in four dtypes; the exact sum
+    and the max equal those of the same values on the host (bf16 widens to
+    f32 exactly, int64 stays exact above 2^53)."""
+    n = 1000
+    rng = np.random.default_rng(30)
+    if dtype == torch.int64:
+        data = rng.integers(-2 ** 40, 2 ** 40, size=n) + 2 ** 53
+        buf_dtype = np.int64
+    else:
+        data = rng.normal(size=n) * 10.0 ** rng.integers(-20, 20, size=n)
+        buf_dtype = np.float64
+    with Runtime(2, 2) as rt:
+        X = rt.buffer((n,), dtype=buf_dtype, init=data, name="X")
+        S = rt.buffer((1,), dtype=buf_dtype, init=np.zeros(1, buf_dtype),
+                      name="S")
+        M = rt.buffer((1,), dtype=buf_dtype, init=np.zeros(1, buf_dtype),
+                      name="M")
+
+        def k(chunk, xv, sum_red, max_red):
+            x = xv.get(chunk)
+            assert x.is_cuda
+            sum_red.contribute(x.to(dtype))
+            max_red.contribute(x.to(dtype))
+
+        rt.submit("k", (n,), [read(X, one_to_one()), reduction(S, "sum"),
+                              reduction(M, "max")], k)
+        got_sum, got_max = rt.gather(S)[0], rt.gather(M)[0]
+    host = torch.from_numpy(data).to(dtype)
+    if dtype == torch.int64:
+        assert int(got_sum) == int(data.sum()) and int(got_max) == data.max()
+    else:
+        vals = host.double().numpy()
+        assert got_sum == math.fsum(vals) and got_max == vals.max()
+
+
+def test_include_current_value_on_device_buffer(cuda):
+    """E is read on the card before and after a reduction that folds its
+    current value in: the card sees the old value, then the new one."""
+    data = np.arange(32.0)
+    with Runtime(2, 2) as rt:
+        X = rt.buffer((32,), init=data, name="X")
+        E = rt.buffer((1,), init=np.full(1, 5.5), name="E")
+        O = [rt.buffer((4,), init=np.zeros(4), name=f"O{i}") for i in (1, 2)]
+
+        def use(chunk, ev, ov):
+            ov.set(chunk, ov.get(chunk) + ev.get(Box((0,), (1,)))[0])
+
+        def k(chunk, xv, red):
+            red.contribute(xv.get(chunk))
+
+        rt.submit("use1", (4,), [read(E, all_range()),
+                                 read_write(O[0], one_to_one())], use)
+        rt.submit("k", (32,), [read(X, one_to_one()),
+                               reduction(E, "sum", include_current_value=True)],
+                  k)
+        rt.submit("use2", (4,), [read(E, all_range()),
+                                 read_write(O[1], one_to_one())], use)
+        o1, o2 = rt.gather(O[0]), rt.gather(O[1])
+    assert list(o1) == [5.5] * 4
+    assert list(o2) == [math.fsum(list(data) + [5.5])] * 4
+
+
+def test_body_energies_rows_equal_full_range_on_card(cuda):
+    """A row's energy has the same bits in any row range (the sum order is
+    fixed by N), and the same bits as the CPU's, which follow numpy's."""
+    N = 5000
+    P = _randn(N, 3, seed=31).to(cuda)
+    V = _randn(N, 3, seed=32).to(cuda) * 0.1
+    full = body_energies(P, V, 0, N, 1e-3)
+    assert torch.equal(full.cpu(), body_energies(P.cpu(), V.cpu(), 0, N,
+                                                 1e-3))
+    for lo, hi in _splits(N, seed=33):
+        assert torch.equal(body_energies(P, V[lo:hi], lo, hi, 1e-3),
+                           full[lo:hi]), (lo, hi)
+
+
+def test_energy_program_bit_identical_across_grids_on_card(cuda):
+    rng = np.random.default_rng(34)
+    P0 = rng.standard_normal((2048, 3), dtype=np.float32)
+    V0 = rng.standard_normal((2048, 3), dtype=np.float32) * 0.1
+    runs = []
+    for nodes, devices in ((1, 1), (2, 2), (3, 1)):
+        with Runtime(nodes, devices) as rt:
+            sim = NBody(rt, P0, V0, 1e-3, 1e-3)
+            sim.advance(4, energy_every=4)
+            runs.append((sim.energy(), sim.gather(), sim.gather_velocities()))
+    for energy, P, V in runs[1:]:
+        assert energy == runs[0][0]
+        np.testing.assert_array_equal(P, runs[0][1])
+    _, P, V = runs[0]
+    e = body_energies(torch.from_numpy(P), torch.from_numpy(V), 0, 2048, 1e-3)
+    assert runs[0][0] == (math.fsum(e.numpy()),
+                          math.fsum((1e-3 * torch.from_numpy(V)[:, 0]).numpy()))
+
+
+def test_spill_and_reload_bitwise_on_card(cuda):
+    """tests/test_memory.py's phased program on the card at 50% of its
+    device high-water mark: spills into pinned host memory and reloads,
+    results bitwise equal, the runtime's device peak under the budget."""
+    n = 1 << 16
+
+    def program(rt):
+        rng = np.random.default_rng(35)
+        bufs = [(rt.buffer((n,), init=rng.normal(size=n), name=f"A{g}"),
+                 rt.buffer((n,), init=np.zeros(n), name=f"B{g}"))
+                for g in range(3)]
+
+        def steps(g, lo, hi):
+            A, B = bufs[g]
+            for s in range(lo, hi):
+                def k(chunk, av, bv, s=s):
+                    bv.set(chunk, bv.get(chunk) + av.get(chunk) * (s + 1))
+                rt.submit(f"g{g}s{s}", (n,), [read(A, one_to_one()),
+                                              read_write(B, one_to_one())], k)
+
+        steps(0, 0, 3)
+        for g in (1, 2):
+            steps(g, 0, 6)
+        steps(0, 3, 6)
+        return [rt.gather(B) for _, B in bufs]
+
+    with Runtime(2, 2) as rt:
+        base = program(rt)
+        hwm = rt.device_peak_bytes()
+    with Runtime(2, 2, device_memory_budget=hwm // 2) as rt:
+        out = program(rt)
+        reports = rt.memory_report()
+        peak = rt.device_peak_bytes()
+        assert rt.warnings == []
+    for a, b in zip(base, out):
+        np.testing.assert_array_equal(a, b)
+    assert peak <= hwm // 2
+    assert sum(r["spills"] for r in reports) > 0
+    assert sum(r["reloads"] for r in reports) > 0
+    assert reports[0]["cuda_max_allocated"] >= reports[0]["cuda_allocated"] > 0
+
+
+def test_wave_residual_equals_fsum_on_card(cuda):
+    rng = np.random.default_rng(36)
+    u0 = rng.standard_normal((300, 200), dtype=np.float32)
+    u1 = rng.standard_normal((300, 200), dtype=np.float32)
+    with Runtime(2, 2) as rt:
+        sim = WaveSim(rt, u0, u1)
+        sim.advance(7)
+        sim.residual()
+        field, prev, res2 = (sim.gather(), sim.gather_previous(),
+                             sim.residual_value())
+    assert res2 == math.fsum(((field - prev) ** 2).ravel())
+
+
+def test_rsim_allocations_on_card_equal_cpu(cuda):
+    runs = {(d, la): run_rsim(32, 8192, lookahead=la, dtype=np.float32,
+                              device=d)
+            for d in ("cuda", "cpu") for la in (True, False)}
+    for la in (True, False):
+        assert runs[("cuda", la)][1] == runs[("cpu", la)][1]
+        np.testing.assert_allclose(runs[("cuda", la)][0],
+                                   runs[("cpu", la)][0], rtol=1e-5)
+    assert runs[("cuda", True)][1] < runs[("cuda", False)][1]

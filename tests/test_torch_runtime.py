@@ -26,14 +26,10 @@ from repro.core.communicator import Payload as RefPayload
 from repro.core.region import Box
 from repro.kernels import ref
 from repro_torch.apps import NBody, WaveSim, run_nbody, run_wave
-from repro_torch.core import ExecutionAborted, Runtime
-from repro_torch.core import one_to_one as port_one_to_one
-from repro_torch.core import read as port_read
-from repro_torch.core import reduction as port_reduction
+from repro_torch.core import Runtime
 from repro_torch.core.allocation import USER_HOST, Allocation
 from repro_torch.core.communicator import Payload
 from repro_torch.core.executor import BufferView
-from repro_torch.core.faults import PeerAborted
 
 ROOT = Path(__file__).resolve().parents[1]
 GRIDS = [(1, 1), (2, 2), (3, 1)]
@@ -192,7 +188,7 @@ def test_wave_field_matches_oracle(nodes, devices):
     assert float(np.abs(got - np.asarray(u)).max()) < 1e-4
 
 
-# -- sanitizer, reductions, device rule -----------------------------------------------
+# -- sanitizer, device rule -----------------------------------------------
 def test_sanitizer_stays_clean_on_2x2():
     P0, V0 = _bodies(64, seed=5)
     u0, u1 = _splash(32, 16)
@@ -202,24 +198,6 @@ def test_sanitizer_stays_clean_on_2x2():
         rt.verifier.check()
         assert rt.warnings == [] and rt.verifier.issues == []
         assert sum(len(s) for s in rt.verifier.streams) > 0
-
-
-@pytest.mark.parametrize("nodes", [1, 2])
-def test_reductions_raise_through_sync(nodes):
-    with Runtime(nodes, 1, device="cpu") as rt:
-        X = rt.buffer((8,), init=np.ones(8), name="X")
-        R = rt.buffer((1,), init=np.zeros(1), name="R")
-        rt.submit("sum", (8,), [port_read(X, port_one_to_one()),
-                                port_reduction(R, "sum")],
-                  lambda chunk, x, r: r.contribute(x.get(chunk)))
-        with pytest.raises(ExecutionAborted) as err:
-            rt.sync(timeout=20)
-    # a node may first hear of its peer's failure (PeerAborted), but at
-    # least one node raised the reduction itself
-    errs = [e for _, e in err.value.failures]
-    assert any(isinstance(e, NotImplementedError) and "later slice" in str(e)
-               for e in errs)
-    assert all(isinstance(e, (NotImplementedError, PeerAborted)) for e in errs)
 
 
 def test_default_device_needs_cuda():
