@@ -79,15 +79,40 @@ Phases, each printing one JSON line:
                 and off: allocation counts equal to the CPU port's for the
                 same program, fields close to each other and to a float64
                 numpy recurrence.
-12. profile   - N-body (10 steps; and one step plus one energy step),
+12. serving-runtime - ``repro_torch.core.ServingRuntime`` on 2 x 2 with two
+                tenants submitting from two client threads at once, one step
+                a window: WaveSim (8192 x 8192 float32, 40 windows, B2) and
+                the N-body (2^17 float32 bodies, 10 windows, B1).  Three
+                runs: memo on; memo off; memo on with renaming, two windows
+                in flight and the sanitizer (``verify="window"``, then
+                ``verify_now()``).  Each run's results bitwise equal to the
+                same steps without the runtime, its memo counts equal to the
+                CPU port's for the same window sequence at a small size, and
+                windows x 4 launches of B2 and B1; per-window latency p50
+                and p99 per tenant, the memo's patch time, the device peak.
+13. faults    - on the card: the N-body (2^17 bodies, 2 x 2, 10 steps) under
+                a chaos plan of drops, duplicates, delays and pilot drops,
+                bitwise equal to the fault-free run with retries and equal
+                logical traffic (in a fresh process, so that the plan hits
+                the same messages on every run); node 1 fail-stopping in a
+                WaveSim 8192 x 8192 run on 2 x 2, which must abort naming N1
+                within 2 s; ``Runtime.run_supervised`` of WaveSim 4096 x
+                8192 on 2 x 2, 20 steps, checkpoints every 5, node 1 failing
+                after the first: one restart, one node, bitwise equal to the
+                runtime-free steps.  Afterwards PyTorch holds the device
+                memory it held before the phase.
+14. scheduler-launcher - ``python -m repro_torch.launch.serve --engine
+                scheduler --tenants 4 --windows 50 --nodes 2 --devices 1``
+                once: exit 0 and "results verified".
+15. profile   - N-body (10 steps; and one step plus one energy step),
                 WaveSim (20 steps), one qwen2 serve batch
                 and one mamba2 serve batch under torch.profiler: the
                 device's busy and idle share of the run's wall time, and
                 device time by kernel.
-13. the ``kernels`` summary line, then the device line.
+16. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5, 7 and 8 are the main path: every launch count is set to 0 just
-before each and read just after.
+Phases 4, 5, 7 and 8 and each run of phase 12 are the main path: every
+launch count is set to 0 just before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
 before printing anything on standard output.
@@ -135,6 +160,30 @@ RSIM_T, RSIM_W = 64, 1 << 20
 # the rows it sums, so row 63 is within sum_{t=1..63} (t + 1) 2^-24 =
 # 1.24e-4 of the recurrence
 RSIM_RTOL = 1.3e-4
+# serving-runtime: ServingRuntime on NODES x DEVICES with a WaveSim tenant
+# (WAVE_H x WAVE_W float32) and an N-body tenant (NBODY_N float32 bodies),
+# one step a window, submitted from two client threads at once; the three
+# runs, each held against the CPU port's memo counts for the same window
+# sequence at a small size
+SERVE_RT_WAVE_WINDOWS, SERVE_RT_NBODY_WINDOWS = 40, 10
+SERVE_RT_RUNS = {"memo": dict(memo=True), "memo_off": dict(memo=False),
+                 "memo_renaming": dict(memo=True, renaming=True,
+                                       max_inflight_windows=2,
+                                       verify="window")}
+# faults: the chaos plan of tests/test_faults.py's smoke case on the N-body
+# (NBODY_N bodies, NODES x DEVICES); a fail-stop of node 1 at its
+# CRASH_AT-th issued instruction in CRASH_STEPS WaveSim steps (WAVE_H x
+# WAVE_W), which must abort within CRASH_LIMIT_S; and a supervised WaveSim
+# run of SUPERVISED_STEPS steps on a SUPERVISED_FIELD field, checkpointed
+# every CHECKPOINT_EVERY steps, whose node 1 fail-stops after the first
+# checkpoint (about step 8)
+FAULT_NBODY_STEPS = 10
+FAULT_PLAN = dict(seed=5, drop=0.08, duplicate=0.08, delay=0.08,
+                  delay_s=0.004, pilot_drop=0.2)
+FAULT_RETRANSMIT_S, WATCHDOG_S = 0.01, 0.3
+CRASH_STEPS, CRASH_AT, CRASH_LIMIT_S = 10, 40, 2.0
+SUPERVISED_FIELD, SUPERVISED_STEPS, CHECKPOINT_EVERY = (4096, 8192), 20, 5
+SUPERVISED_CRASH_AT = 100
 # the serving main path: qwen2-1.5b at full width
 SERVE_ARCH, SERVE_REQUESTS, SERVE_MAX_BATCH = "qwen2-1.5b", 8, 4
 SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
@@ -859,6 +908,299 @@ def phase_lookahead() -> dict:
     return res
 
 
+def percentiles(xs: list[float]) -> dict:
+    """p50 and p99 of per-window latencies, in ms (the launcher's rule)."""
+    s = sorted(xs)
+    return {"p50_ms": s[len(s) // 2] * 1e3,
+            "p99_ms": s[min(len(s) - 1, int(len(s) * 0.99))] * 1e3}
+
+
+def memo_counts(stats: dict) -> dict:
+    return {"hits": int(stats["hits"]), "misses": int(stats["misses"]),
+            "unreplayable": int(stats["unreplayable"]),
+            "tenants": {n: [t["lowered"], t["replayed"]]
+                        for n, t in sorted(stats["tenants"].items())}}
+
+
+def served_run(device: str, kw: dict, u0, u1, P0, V0) -> dict:
+    """One ``serve_simulations`` run on a ServingRuntime(NODES, DEVICES)."""
+    from repro_torch.apps import serve_simulations
+    from repro_torch.core import ServingRuntime
+    from repro_torch.kernels import nbody_forces_rows, wave_step_rows
+    mass = 1.0 / P0.shape[0]
+    with ServingRuntime(NODES, DEVICES, device=device, **kw) as srv:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve_simulations(srv, u0, u1, P0, V0,
+                                wave_windows=SERVE_RT_WAVE_WINDOWS,
+                                nbody_windows=SERVE_RT_NBODY_WINDOWS,
+                                dt=DT, mass=mass, c=WAVE_C)
+        wall = time.perf_counter() - t0
+        launches = {"nbody_forces_rows": nbody_forces_rows.launches,
+                    "wave_step_rows": wave_step_rows.launches}
+        stats = srv.memo_stats()
+        verified = None
+        if srv.verifier is not None:
+            # raises VerificationError on any issue
+            rep = srv.verify_now()
+            verified = {"ok": rep.ok, "instructions": rep.instructions}
+        peak = max((v for ex in srv.executors
+                    for mid, v in ex.mem_peak.items() if mid >= 2), default=0)
+    return {"out": out, "wall_s": wall, "launches": launches,
+            "counts": memo_counts(stats), "patch_us": stats["patch_us"],
+            "verified": verified, "device_peak_bytes": peak}
+
+
+def phase_serving_runtime(dev) -> dict:
+    """Two tenants on ServingRuntime(NODES, DEVICES) on the card, memo on,
+    off, and on with renaming, two windows in flight and the sanitizer;
+    each run's results bitwise against the same steps without the runtime,
+    its memo counts against the CPU port's on the same window sequence."""
+    t_phase = time.perf_counter()
+    from repro_torch.kernels.nbody import nbody_forces_rows
+    from repro_torch.kernels.stencil5 import wave_step_rows
+    rng = np.random.default_rng(SEED + 4)
+    u0 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
+    V0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1
+    # the same steps without the runtime: B2 and B1 on the whole arrays
+    um, u = torch.from_numpy(u0).to(dev), torch.from_numpy(u1).to(dev)
+    for _ in range(SERVE_RT_WAVE_WINDOWS):
+        um, u = u, wave_step_rows(um, u, 0, WAVE_H, WAVE_C)
+    exp_field = u.cpu().numpy()
+    P, V = torch.from_numpy(P0).to(dev), torch.from_numpy(V0).to(dev)
+    mass = 1.0 / NBODY_N
+    for _ in range(SERVE_RT_NBODY_WINDOWS):
+        F = nbody_forces_rows(P, 0, NBODY_N)
+        V = V + mass * F * DT
+        P = P + V * DT
+    exp_P = P.cpu().numpy()
+    del um, u, P, V, F
+    # the CPU port's counts for the same window sequence, at a small size
+    small = np.random.default_rng(SEED + 5)
+    su0 = small.standard_normal((64, 32), dtype=np.float32)
+    sP0 = small.standard_normal((64, 3), dtype=np.float32)
+    runs, ok = {}, True
+    for name, kw in SERVE_RT_RUNS.items():
+        cpu = served_run("cpu", kw, su0, su0 * 0.5, sP0, sP0 * 0.1)
+        torch.cuda.reset_peak_memory_stats()
+        r = served_run(dev.type, kw, u0, u1, P0, V0)
+        field = r["out"]["wave"]["field"]
+        pos = r["out"]["nbody"]["P"]
+        want_launches = {"nbody_forces_rows":
+                         SERVE_RT_NBODY_WINDOWS * NODES * DEVICES,
+                         "wave_step_rows":
+                         SERVE_RT_WAVE_WINDOWS * NODES * DEVICES}
+        checks = {
+            "wave_bit_identical_to_runtime_free":
+                bool(np.array_equal(field, exp_field)),
+            "nbody_bit_identical_to_runtime_free":
+                bool(np.array_equal(pos, exp_P)),
+            "memo_counts_equal_cpu": r["counts"] == cpu["counts"],
+            "launches_equal_windows_x_devices":
+                r["launches"] == want_launches,
+            "finite": bool(np.isfinite(field).all() and np.isfinite(pos).all()),
+            "verified": r["verified"] is None or r["verified"]["ok"]}
+        ok = ok and all(checks.values())
+        runs[name] = {
+            **checks, "memo_counts": r["counts"],
+            "memo_counts_cpu": cpu["counts"], "launches": r["launches"],
+            "wall_s": r["wall_s"],
+            "latency": {t: percentiles(r["out"][t]["latency_s"])
+                        for t in ("wave", "nbody")},
+            "first_window_ms": {t: r["out"][t]["latency_s"][0] * 1e3
+                                for t in ("wave", "nbody")},
+            "patch_us": r["patch_us"], "verify": r["verified"],
+            "device_peak_bytes": r["device_peak_bytes"],
+            "torch_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    res = {"phase": "serving-runtime", "ok": ok, "grid": [NODES, DEVICES],
+           "wave": {"field": [WAVE_H, WAVE_W],
+                    "windows": SERVE_RT_WAVE_WINDOWS},
+           "nbody": {"bodies": NBODY_N, "windows": SERVE_RT_NBODY_WINDOWS},
+           "dtype": "float32", "runs": runs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not ok:
+        raise SystemExit("serving-runtime phase failed")
+    return res
+
+
+def fault_chaos(dev) -> dict:
+    """The N-body under the chaos plan against the same run fault-free.
+    The plan's fates hash the transfer ids, which come from process-wide
+    counters, so ``chaos_in_fresh_process`` runs this where they start from
+    zero: the same messages are dropped on every run."""
+    from repro_torch.apps import run_nbody
+    from repro_torch.core import FaultPlan, Runtime
+    rng = np.random.default_rng(SEED + 6)
+    P0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32)
+    V0 = rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1
+    runs = {}
+    for name, plan in (("fault_free", None),
+                       ("chaos", FaultPlan(**FAULT_PLAN))):
+        t0 = time.perf_counter()
+        with Runtime(NODES, DEVICES, device=dev.type, fault_plan=plan,
+                     retransmit_timeout=FAULT_RETRANSMIT_S) as rt:
+            P = run_nbody(rt, P0, V0, FAULT_NBODY_STEPS, DT, MASS)
+            comm = rt.comm_stats()
+            warnings = list(rt.warnings)
+        runs[name] = {"P": P, "comm": comm, "warnings": warnings,
+                      "seconds": time.perf_counter() - t0}
+    clean, chaos = runs["fault_free"], runs["chaos"]
+    logical = ("messages", "bytes")
+    checks = {"bit_identical_to_fault_free":
+                  bool(np.array_equal(chaos["P"], clean["P"])),
+              "retries": chaos["comm"]["retries"] > 0,
+              "logical_traffic_equal": all(chaos["comm"][k] == clean["comm"][k]
+                                           for k in logical),
+              "no_warnings": not clean["warnings"] and not chaos["warnings"]}
+    return {"ok": all(checks.values()), **checks, "steps": FAULT_NBODY_STEPS,
+            "device": dev.type,
+            "plan": FAULT_PLAN, "retransmit_timeout_s": FAULT_RETRANSMIT_S,
+            "comm_fault_free": clean["comm"], "comm_chaos": chaos["comm"],
+            "seconds": {k: r["seconds"] for k, r in runs.items()}}
+
+
+def chaos_in_fresh_process() -> dict:
+    """``fault_chaos`` on the card in a new Python process."""
+    code = ("import json, torch, chip_smoke; print(json.dumps("
+            "chip_smoke.fault_chaos(torch.device('cuda', 0))))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        return {"ok": False, "returncode": r.returncode,
+                "stderr_tail": r.stderr[-2000:]}
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+def fault_crash(dev) -> dict:
+    """Node 1 fail-stops in a WaveSim run: ``sync`` must raise
+    ExecutionAborted naming N1 within CRASH_LIMIT_S.  The first step, which
+    seeds the fields (pinned host allocations of hundreds of MB take longer
+    than the watchdog's deadline), is synced before the crash can come."""
+    from repro_torch.apps import WaveSim
+    from repro_torch.core import ExecutionAborted, FaultPlan, Runtime
+    rng = np.random.default_rng(SEED + 7)
+    u0 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    u1 = rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32)
+    rt = Runtime(NODES, DEVICES, device=dev.type,
+                 fault_plan=FaultPlan(crash={1: CRASH_AT}),
+                 watchdog_timeout=WATCHDOG_S)
+    err = None
+    try:
+        sim = WaveSim(rt, u0, u1, WAVE_C)
+        sim.advance(1)
+        rt.sync()
+        sim.advance(CRASH_STEPS - 1)
+        t0 = time.monotonic()
+        try:
+            rt.sync(timeout=30.0)
+        except ExecutionAborted as e:   # the outcome this case asks for
+            err = e
+        elapsed = time.monotonic() - t0
+    finally:
+        rt.shutdown()
+    msg = str(err) if err is not None else ""
+    failures = {n: type(e).__name__ for n, e in err.failures} if err else {}
+    checks = {"aborted": err is not None,
+              "names_n1": "N1" in msg and failures.get(1) == "InjectedCrash",
+              "within_limit": elapsed < CRASH_LIMIT_S,
+              "no_leaked_threads": rt.thread_report()["total_leaked"] == 0}
+    return {"ok": all(checks.values()), **checks, "seconds": elapsed,
+            "limit_s": CRASH_LIMIT_S, "crash_at": CRASH_AT,
+            "failures": failures, "message": msg[:400]}
+
+
+def fault_supervised(dev) -> dict:
+    """``Runtime.run_supervised`` of WaveSim with node 1 crashing after the
+    first checkpoint: one restart on one node, the result bitwise equal to
+    the same steps without the runtime."""
+    from repro_torch.core import (FaultPlan, Runtime, neighborhood,
+                                  one_to_one, read, write)
+    from repro_torch.apps.wavesim import make_step_kernel
+    from repro_torch.kernels.stencil5 import wave_step_rows
+    H, W = SUPERVISED_FIELD
+    rng = np.random.default_rng(SEED + 8)
+    u0 = rng.standard_normal((H, W), dtype=np.float32)
+    u1 = rng.standard_normal((H, W), dtype=np.float32)
+    kernel = make_step_kernel(H, W, WAVE_C)
+
+    def build(rt, init):
+        snap = init or {"B0": u0, "B1": u1, "B2": np.zeros_like(u1)}
+        return {k: rt.buffer((H, W), dtype=np.float32, init=v, name=k)
+                for k, v in snap.items()}
+
+    def step(rt, bufs, i):
+        um, u, un = (bufs[f"B{(i + k) % 3}"] for k in range(3))
+        rt.submit("wave", (H, W), [read(um, one_to_one()),
+                                   read(u, neighborhood((1, 0))),
+                                   write(un, one_to_one())], kernel)
+
+    t0 = time.perf_counter()
+    res = Runtime.run_supervised(
+        build, step, steps=SUPERVISED_STEPS, num_nodes=NODES,
+        devices_per_node=DEVICES, checkpoint_every=CHECKPOINT_EVERY,
+        fault_plan=FaultPlan(crash={1: SUPERVISED_CRASH_AT}),
+        watchdog_timeout=WATCHDOG_S, device=dev.type)
+    seconds = time.perf_counter() - t0
+    um, u = torch.from_numpy(u0).to(dev), torch.from_numpy(u1).to(dev)
+    for _ in range(SUPERVISED_STEPS):
+        um, u = u, wave_step_rows(um, u, 0, H, WAVE_C)
+    exp = u.cpu().numpy()
+    del um, u
+    got = res.results[f"B{(SUPERVISED_STEPS + 1) % 3}"]
+    checks = {"restarts": res.restarts == 1, "world": res.world == 1,
+              "steps": res.steps == SUPERVISED_STEPS,
+              "bit_identical_to_runtime_free": bool(np.array_equal(got, exp))}
+    return {"ok": all(checks.values()), **checks, "restarts_seen": res.restarts,
+            "world_seen": res.world, "field": [H, W],
+            "checkpoint_every": CHECKPOINT_EVERY,
+            "crash_at": SUPERVISED_CRASH_AT, "seconds": seconds}
+
+
+def phase_faults(dev) -> dict:
+    """Chaos, crash and supervised restart on the card; afterwards the
+    device memory PyTorch holds is back at its level before the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    chaos, crash = chaos_in_fresh_process(), fault_crash(dev)
+    supervised = fault_supervised(dev)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    ok = chaos["ok"] and crash["ok"] and supervised["ok"] and after == before
+    res = {"phase": "faults", "ok": ok, "grid": [NODES, DEVICES],
+           "chaos": chaos, "crash": crash, "supervised": supervised,
+           "memory_allocated_before": before, "memory_allocated_after": after,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not ok:
+        raise SystemExit("faults phase failed")
+    return res
+
+
+def phase_scheduler_launcher() -> dict:
+    """``python -m repro_torch.launch.serve --engine scheduler`` once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--engine", "scheduler", "--tenants", "4",
+                        "--windows", "50", "--nodes", "2", "--devices", "1"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    ok = (r.returncode == 0 and "(cuda)" in r.stdout
+          and "results verified: every element == 50.0" in r.stdout)
+    res = {"phase": "scheduler-launcher", "ok": ok,
+           "returncode": r.returncode, "stdout": r.stdout.splitlines()[:8],
+           "seconds": time.perf_counter() - t0,
+           "stderr_tail": "" if ok else r.stderr[-2000:]}
+    emit(res)
+    if not ok:
+        raise SystemExit("scheduler launcher failed")
+    return res
+
+
 def serve_reference_one(dev, arch: str) -> dict:
     """Reduced ``arch`` in float32, B3 on, against the same weights on the CPU
     (the tests hold the CPU port against the JAX package): prefill and eight
@@ -1361,6 +1703,9 @@ def main() -> int:
     wave = phase_wave(dev)
     phase_budget()
     phase_lookahead()
+    phase_serving_runtime(dev)
+    phase_faults(dev)
+    phase_scheduler_launcher()
     phase_serve_reference(dev)
     # full width: f32 weights drawn on the card from SEED, bf16 activations
     serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),

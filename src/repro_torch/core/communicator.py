@@ -294,6 +294,18 @@ class Communicator:
     def unacked(self, node: int) -> int:
         return len(self._outstanding[node])
 
+    def drop_in_flight(self) -> None:
+        """Drop every payload still on the wire: undelivered, delayed or
+        kept for retransmission.  After an aborted run these hold snapshots
+        in device memory that no receiver will land; the runtime calls this
+        once its executors have stopped."""
+        with self._cv:
+            for box in self.payload_box:
+                box.clear()
+            for out in self._outstanding:
+                out.clear()
+            self._delayed.clear()
+
     def transport_summary(self) -> str:
         pend = {n: len(out) for n, out in enumerate(self._outstanding) if out}
         return (f"unacked sends per node: {pend or 'none'}; "

@@ -327,6 +327,9 @@ class Executor:
         self._crash_at = fault_plan.crash_point(node) if fault_plan else None
         self._slow_s = fault_plan.slow_s(node) if fault_plan else 0.0
         self._issued_count = 0
+        # instructions handed to a backend lane and not yet completed
+        # (issued and drained on the executor thread; the watchdog reads it)
+        self._on_lanes = 0
         self.crashed = False
         self.warnings: list[str] = []
         self.leaked_threads = 0
@@ -395,7 +398,8 @@ class Executor:
         would never complete) and takes the abort path directly.  Any thread
         still alive after its join deadline is counted in
         ``leaked_threads`` and recorded as a warning instead of being
-        silently ignored.  Returns the leaked-thread count.
+        silently ignored.  With every thread joined, the store's tensors
+        are released.  Returns the leaked-thread count.
         """
         if self.errors or self.crashed:
             self._abort = True
@@ -427,6 +431,13 @@ class Executor:
             self.warnings.append(
                 f"executor N{self.node}: {backend_leaked} backend lane "
                 f"thread(s) failed to join (kernel still running?)")
+        elif not self._thread.is_alive():
+            # every lane has finished its stream work (a lane reports an item
+            # only after its stream's event), so the tensors an aborted run
+            # never freed can go now rather than when the executor is
+            # collected; with a lane still running they must stay
+            self.store.clear()
+            self.arbiter.early_payloads.clear()
         if self._watchdog is not None:
             self._watchdog.join(timeout=2.0)
             if self._watchdog.is_alive():
@@ -466,10 +477,13 @@ class Executor:
         """Watchdog: fire when instructions are stuck past the deadline.
 
         Progress is 'some instruction completed recently'; idle (nothing
-        registered, nothing pending) resets the clock.  On fire it names the
-        oldest unfinished instruction and the peers whose heartbeats went
-        stale, then broadcasts the abort so the whole grid fails within ~1
-        round trip instead of the epoch timeout.
+        registered, nothing pending) resets the clock, and so does work on
+        a backend lane: on a card one copy into a large pinned allocation
+        can outlast the deadline, and a node whose lanes are busy is not
+        stuck (the reference fires on it).  On fire it names the oldest
+        unfinished instruction and the peers whose heartbeats went stale,
+        then broadcasts the abort so the whole grid fails within ~1 round
+        trip instead of the epoch timeout.
         """
         period = max(0.01, min(self.watchdog_timeout / 4.0, 0.25))
         while not self._watch_stop.wait(period):
@@ -480,7 +494,8 @@ class Executor:
                 self._wd_done = self._done_count
                 self._wd_mark = now
                 continue
-            busy = bool(self._remaining) or self.arbiter.has_pending()
+            busy = ((bool(self._remaining) or self.arbiter.has_pending())
+                    and self._on_lanes <= 0)
             if not busy:
                 self._wd_mark = now
                 continue
@@ -528,6 +543,7 @@ class Executor:
                 progressed = True
             # 2. drain backend completions (unblocks ready/eager candidates)
             for tag, err, lat in self.backend.sink.drain():
+                self._on_lanes -= 1
                 if err is not None:
                     self._fail(err)
                 self._mark_done(tag, lat)
@@ -743,6 +759,7 @@ class Executor:
         # queue-wait (lane contention) separates from execution time
         fn = self._run_timed if self._obs else self._dispatch[it]
         item = WorkItem(fn=fn, tag=instr)
+        self._on_lanes += 1
         if instr.queue[0] == "device":
             q = self.backend.pick_device_queue(instr.queue[1], preferred=queue)
             self._issued_on[instr.iid] = q
@@ -946,9 +963,12 @@ class Executor:
 
     def _exec_alloc(self, instr: Instruction) -> None:
         a = instr.allocation
-        if a.bid is None:
-            # a reduction accumulator scratch (the only buffer-less
-            # allocations): a host array whatever its memory id
+        if not instr.persistent:
+            # a reduction accumulator scratch (the only allocations that are
+            # not buffer-backed when their ALLOC is emitted): a host array
+            # whatever its memory id.  ``a.bid`` cannot tell: renaming sets
+            # it to None on the scheduler thread when the physical retires
+            # to the free pool, which may precede this ALLOC's execution.
             arr = np.empty(a.box.shape, dtype=np.dtype(a.dtype))
         else:
             arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),

@@ -552,6 +552,7 @@ class Runtime:
             s.shutdown()
         for ex in self.executors:
             ex.shutdown()
+        self.comm.drop_in_flight()
         # final registry values become Perfetto counter samples, so the
         # exported trace carries the unified metrics end state
         if self.tracer is not None and self.metrics_registry is not None:

@@ -7,6 +7,7 @@ Run on a machine with the card (no JAX needed there):
 
 import copy
 import dataclasses
+import gc
 import math
 
 import numpy as np
@@ -14,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch.apps import (NBody, WaveSim, body_energies, run_nbody,
-                              run_rsim, run_wave)
+                              run_rsim, run_wave, serve_simulations)
 from repro_torch.configs import get_config
-from repro_torch.core import (Box, Runtime, all_range, one_to_one, read,
-                              read_write, reduction)
+from repro_torch.core import (Box, ExecutionAborted, FaultPlan, Runtime,
+                              ServingRuntime, all_range, one_to_one, read,
+                              read_write, reduction, write)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import build_model
@@ -463,3 +465,91 @@ def test_rsim_allocations_on_card_equal_cpu(cuda):
         np.testing.assert_allclose(runs[("cuda", la)][0],
                                    runs[("cpu", la)][0], rtol=1e-5)
     assert runs[("cuda", True)][1] < runs[("cuda", False)][1]
+
+
+def test_renamed_allocations_are_cuda_tensors(cuda):
+    """Fault C2 on the card: under renaming every buffer allocation a kernel
+    sees is a CUDA tensor, and the bytes equal the renaming-off run's."""
+    n = 1 << 16
+    a0 = np.random.default_rng(37).standard_normal(n, dtype=np.float32)
+
+    def program(rt, seen):
+        A = rt.buffer((n,), dtype=np.float32, init=a0, name="A")
+        B = rt.buffer((n,), dtype=np.float32, init=np.zeros_like(a0),
+                      name="B")
+        for s in range(6):
+            def k(chunk, av, bv, _s=s):
+                seen.update((type(av.array), av.array.device.type,
+                             bv.array.device.type))
+                bv.set(chunk, av.get(chunk) * (_s + 2))
+            rt.submit(f"s{s}", (n,), [read(A, one_to_one()),
+                                      write(B, one_to_one())], k)
+        return rt.gather(B)
+
+    runs = {}
+    for ren in (False, True):
+        seen = set()
+        with Runtime(2, 2, renaming=ren) as rt:
+            runs[ren] = program(rt, seen)
+            renames = sum(r["renames"] for r in rt.memory_report())
+        assert seen == {torch.Tensor, "cuda"}, seen
+    np.testing.assert_array_equal(runs[True], runs[False])
+    assert renames > 0
+
+
+def test_replayed_windows_bitwise_equal_cold_on_card(cuda):
+    """Both simulations served as tenants: with memo on most windows are
+    replays, and every result is bitwise that of memo off (all windows
+    lowered cold) and of the runtime-free steps; B1 and B2 ran in every
+    window."""
+    rng = np.random.default_rng(38)
+    u0 = rng.standard_normal((512, 256), dtype=np.float32)
+    u1 = rng.standard_normal((512, 256), dtype=np.float32)
+    P0 = rng.standard_normal((1024, 3), dtype=np.float32)
+    V0 = rng.standard_normal((1024, 3), dtype=np.float32) * 0.1
+    dt, mass = 1e-3, 1.0 / 1024
+    out = {}
+    for memo in (True, False):
+        nbody_forces_rows.launches = wave_step_rows.launches = 0
+        with ServingRuntime(2, 2, memo=memo) as srv:
+            r = serve_simulations(srv, u0, u1, P0, V0, wave_windows=12,
+                                  nbody_windows=6, dt=dt, mass=mass)
+            tenants = srv.memo_stats()["tenants"]
+        assert wave_step_rows.launches == 12 * 4
+        assert nbody_forces_rows.launches == 6 * 4
+        out[memo] = (r["wave"]["field"], r["nbody"]["P"], tenants)
+    assert out[True][2]["wave"]["replayed"] > 0
+    assert out[True][2]["nbody"]["replayed"] > 0
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+    um, u = torch.from_numpy(u0).to(cuda), torch.from_numpy(u1).to(cuda)
+    for _ in range(12):
+        um, u = u, wave_step_rows(um, u, 0, 512, 0.25)
+    np.testing.assert_array_equal(out[True][0], u.cpu().numpy())
+
+
+def test_crash_teardown_returns_device_memory(cuda):
+    """A fail-stopped WaveSim run on 2 x 2: after ``shutdown``, with the
+    garbage collector off, PyTorch holds the device memory it held before
+    the run."""
+    rng = np.random.default_rng(39)
+    u0 = rng.standard_normal((1024, 512), dtype=np.float32)
+    u1 = rng.standard_normal((1024, 512), dtype=np.float32)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        rt = Runtime(2, 2, fault_plan=FaultPlan(crash={1: 40}),
+                     watchdog_timeout=0.3)
+        try:
+            WaveSim(rt, u0, u1).advance(10)
+            with pytest.raises(ExecutionAborted, match="N1"):
+                rt.sync(timeout=30.0)
+            assert torch.cuda.memory_allocated() > before
+        finally:
+            rt.shutdown()
+        assert rt.thread_report()["total_leaked"] == 0
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == before
+    finally:
+        gc.enable()
