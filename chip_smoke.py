@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
                 shapes (hd 24, 80 and 112, G = 1, rows and keys off the
                 kernel's 128-row and 128-key tiles), float32 and bfloat16,
                 causal, windows 32 and 200 and non-causal, and ``q_offset``
-                cases with T > S; B4 at the shapes of
+                cases with T > S, each also with its logsumexp (lse against
+                the plain version's, the output bit for bit the launch
+                without lse); B3's gradients under autograd (f32, causal,
+                window 32 or none, G = 1 and 6) against autograd through the
+                einsum route; B4 at the shapes of
                 ``tests/test_kernels.py``, a ragged s = 1000, the serving
                 shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), s = 4096
                 and a near 0, float32 and bfloat16.
@@ -43,10 +47,35 @@ Phases, each printing one JSON line:
                 step (which also seeds the buffers on the card) and the
                 steps after it, each ended by ``rt.sync()``, then the
                 gather; the energy steps and the residual are timed apart.
+5b. trace     - instruction records timed on the card: the N-body (2^17
+                bodies, 10 steps) and WaveSim (8192^2, 20 steps) on 2 x 2
+                with ``trace=True`` under torch.profiler: every card record
+                stamped and ordered, inside its host interval within 0.2 ms,
+                wait sums exact, every gate of steps 2..N held; the card's
+                busy union from the records over steps 2..N within 10% of
+                the profiler's union over the lanes' streams (each
+                simulated device's printed); the steady-state idle share;
+                the critical path; a Perfetto export with events on every
+                device lane; steps/s traced, with metrics only and bare.
+                On 1 x 1 the same busy check, and the median B1 and
+                WaveSim step record within 5% of a CUDA-event timing of the
+                same work (B1; B2 and the copy of its result).
 6. serve-reference - reduced qwen2-1.5b, mamba2-370m and zamba2-7b in float32
                 on the card (B3 on; B4 in every Mamba2 layer's prefill)
                 against the same weights served by the port on the CPU, which
                 the tests hold against the JAX package.
+6b. train-reference - reduced qwen2-1.5b in f32 with B3, three TrainLoop
+                steps on the card against the CPU port on the same weights
+                and batches; a run failing at step 5 restored from its
+                checkpoint against the uninterrupted run; ElasticTrainer
+                through one injected failure.
+6c. train     - qwen2-1.5b at full width (f32 weights, bf16 activations,
+                B3 in every layer's forward) through ``TrainLoop``: the first
+                step's loss and grad norm against the einsum route, a
+                warm-up step, then 4 steps of 2 x 2048 tokens (ms per step,
+                tokens/s, peak memory, 28 B3 launches a step, the first
+                batch's loss lower after the steps than before); then ``python -m repro_torch.launch.train --full
+                --flash --steps 2 --batch 1 --seq 1024`` once.
 7. serve      - qwen2-1.5b at full width through ``repro_torch.runtime.
                 ServeLoop``: 8 requests of 1024-2048 tokens, 4 per batch, 32
                 new tokens each, f32 weights, bf16 activations, flash
@@ -67,7 +96,8 @@ Phases, each printing one JSON line:
                 CUDA events, beside its bound, its plain version, for B3 one
                 PyTorch call (``scaled_dot_product_attention``), and its
                 error against the plain version there; B1's, B3's and B4's
-                achieved TFLOP/s.
+                achieved TFLOP/s; B3 at the train shape with and without
+                lse, beside the plain backward.
 10. budget    - both memory-budget demos on the card at 50% of their
                 unbudgeted device high-water mark: three phased N-body
                 simulations of 2^17 float32 bodies (1 x 1, 8 steps each,
@@ -111,8 +141,8 @@ Phases, each printing one JSON line:
                 device time by kernel.
 16. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5, 7 and 8 and each run of phase 12 are the main path: every
-launch count is set to 0 just before each and read just after.
+Phases 4, 5, 6c, 7 and 8 and each run of phase 12 are the main path:
+every launch count is set to 0 just before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
 before printing anything on standard output.
@@ -121,6 +151,7 @@ before printing anything on standard output.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -215,6 +246,11 @@ TOL = {"nbody_forces_rows": dict(rtol=1e-4, atol=1e-6),
        "wave_step_rows": dict(rtol=1e-5, atol=1e-5),
        "flash_attention.float32": dict(rtol=2e-5, atol=2e-5),
        "flash_attention.bfloat16": dict(rtol=2e-2, atol=2e-2),
+       # B3's lse against the plain version's, both dtypes: the logits are
+       # exact f32 products of the same inputs in both, so lse = m + log(l)
+       # differs only by the order of l's sum and ex2's 2 ulp (bf16 path),
+       # a few f32 epsilons of l and so of log(l)
+       "flash_attention.lse": dict(rtol=1e-5, atol=1e-5),
        "ssd_scan.float32": dict(rtol=1e-5, atol=1e-6),
        "ssd_scan.bfloat16": dict(rtol=1.2e-2, atol=1e-6)}
 # serve-reference: reduced models in f32, card against CPU: prefill and
@@ -243,6 +279,46 @@ SERVE_TOL = 4e-2
 # of the depth, so about 0.03-0.04 at 48 layers; the tolerance leaves room
 # above that.
 SSM_TOL = 5e-2
+# kernels: B3's gradients (the autograd Function: the kernel's forward with
+# lse, the plain backward) against autograd through the einsum route, f32:
+# within this share of the largest magnitude.
+FLASH_GRAD_TOL = 1e-4
+# timing: B3's gradients at the train shape in bf16 (the Function: the
+# kernel's forward, the plain backward in f32 from bf16 inputs, gradients
+# rounded once) against autograd through the einsum route in bf16, which
+# rounds the logits, the softmax weights, the gradient of the logits and
+# every product's output to bf16 (each 2^-9 of its value, and a logit's
+# error moves its weight by as much relative to the logit's size, up to
+# about 4 here): about 1% of an element, summed over up to 2048 keys with
+# random signs; within this share of the largest magnitude.  A wrong lse
+# row scales that row's weights and is off by its whole size.
+FLASH_GRAD_BF16_TOL = 5e-2
+# trace: instruction records timed on the card.  A card interval must lie
+# inside its lane's host interval within TRACE_SLACK_S (the anchor's error:
+# its host stamp follows the anchor's completion by a synchronise's wake-up);
+# on 1 x 1 the median B1 and WaveSim step record lasts within
+# TRACE_DURATION_RTOL of a CUDA-event timing of the same work, and on 1 x 1
+# and 2 x 2 the card's busy union from the records over steps 2..N within
+# TRACE_BUSY_RTOL of torch.profiler's over the lanes' streams.
+TRACE_NBODY_STEPS, TRACE_WAVE_STEPS = 10, 20
+TRACE_SLACK_S, TRACE_DURATION_RTOL, TRACE_BUSY_RTOL = 2e-4, 0.05, 0.10
+# instructions the receive arbiter completes, and graph syncs: no card work
+ARBITER_KINDS = ("receive", "split_receive", "await_receive",
+                 "gather_receive", "coll_recv", "horizon", "epoch")
+# train-reference: reduced qwen2-1.5b in f32, card against CPU, 3 TrainLoop
+# steps; losses within 1e-4 relative (f32 sums in other orders over two
+# layers, three optimizer steps)
+TRAIN_REF_BATCH, TRAIN_REF_SEQ, TRAIN_REF_STEPS, TRAIN_REF_TOL = 4, 64, 3, 1e-4
+# train: qwen2-1.5b at full width, f32 weights, bf16 activations, B3 on, 2 x
+# 2048 tokens a step; the first step's loss and grad norm on the flash route
+# against the einsum route: the two round at different points (see
+# SERVE_TOL), which moves a mean of 4094 token losses little (1e-3) and the
+# norm of 1.5e9 gradients more (1e-2)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# the loss must fall on a batch never trained on (its index is past every
+# step's), read before the warm-up step and after TRAIN_FALL_STEPS steps
+TRAIN_HELD_OUT, TRAIN_FALL_STEPS = 10**6, 20
+TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-3, 1e-2
 
 
 def emit(obj) -> None:
@@ -354,6 +430,7 @@ def phase_kernels(dev) -> dict:
     cases += flash_cases(dev, g)
     cases += ssd_cases(dev, g)
     torch.cuda.synchronize()
+    ok = ok and all(c["ok"] for c in cases)
     worst = {}
     for c in cases:
         worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), c["max_abs_err"])
@@ -387,8 +464,16 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
             for causal, window in ((True, None), (True, 32), (True, 200),
                                    (False, None)):
                 got = flash_attention(q, k, v, causal=causal, window=window)
-                e = errors(got, flash_attention_plain(q, k, v, causal=causal,
-                                                      window=window), name)
+                exp, exp_lse = flash_attention_plain(
+                    q, k, v, causal=causal, window=window, return_lse=True)
+                e = errors(got, exp, name)
+                # the launch with lse: the same output, and lse
+                got2, lse = flash_attention(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+                e["lse"] = errors(lse, exp_lse, "flash_attention.lse")
+                e["out_equal_without_lse"] = bool(torch.equal(got, got2))
+                e["ok"] = (e["ok"] and e["lse"]["ok"]
+                           and e["out_equal_without_lse"])
                 cases.append({"kernel": "flash_attention",
                               "shape": [S, T, K, G, hd], "dtype": str(dtype),
                               "causal": causal, "window": window, **e})
@@ -408,6 +493,41 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
             cases.append({"kernel": "flash_attention",
                           "shape": [S, T, 2, G, hd], "dtype": str(dtype),
                           "window": window, "q_offset": T - S, **e})
+    return cases + flash_grad_cases(dev, g)
+
+
+def flash_grad_cases(dev, g: torch.Generator) -> list[dict]:
+    """B3 under autograd (its forward with lse, the plain blockwise
+    backward) against autograd through the einsum route, f32, causal, with
+    and without a window of 32, G = 1 and 6."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import _sdpa, causal_mask
+    cases = []
+    B, S, K, hd = 2, 256, 2, 64
+    for G in (1, 6):
+        for window in (None, 32):
+            base = [torch.randn(B, S, K, G, hd, generator=g),
+                    torch.randn(B, S, K, hd, generator=g),
+                    torch.randn(B, S, K, hd, generator=g)]
+            dout = torch.randn(B, S, K, G, hd, generator=g).to(dev)
+            mask = causal_mask(S, S, window=window, device=dev)
+            grads = []
+            for route in ("kernel", "einsum"):
+                qkv = [t.to(dev).requires_grad_() for t in base]
+                out = (flash_attention(*qkv, window=window)
+                       if route == "kernel" else _sdpa(*qkv, mask))
+                (out * dout).sum().backward()
+                grads.append([t.grad for t in qkv])
+            errs = {n: float((a - b).abs().max() / b.abs().max())
+                    for n, a, b in zip("qkv", *grads)}
+            cases.append({"kernel": "flash_attention", "gradients": True,
+                          "shape": [S, S, K, G, hd], "dtype": "torch.float32",
+                          "causal": True, "window": window,
+                          "max_err_over_largest": errs,
+                          "max_abs_err": max(float((a - b).abs().max())
+                                             for a, b in zip(*grads)),
+                          "tol": FLASH_GRAD_TOL,
+                          "ok": max(errs.values()) <= FLASH_GRAD_TOL})
     return cases
 
 
@@ -1524,7 +1644,10 @@ def phase_timing(dev) -> list[dict]:
                 "bound_ms": bound_ms, "bound_by": "bytes",
                 "share_of_bound": bound_ms / ms, "shape": [step, W],
                 "bytes": nbytes, **e})
-    out.append(flash_timing(dev, g))
+    flash = flash_timing(dev, g)
+    flash["train"] = flash_train_timing(dev, g)
+    flash["ok"] = flash["ok"] and flash["train"]["ok"]
+    out.append(flash)
     out.append(ssd_timing(dev, g))
     ok = all(t["ok"] for t in out)
     emit({"phase": "timing", "ok": ok, "kernels": out})
@@ -1606,9 +1729,16 @@ def ssd_timing(dev, g: torch.Generator) -> dict:
             "bytes": nbytes, **e}
 
 
-def device_activity(run) -> dict:
+def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
     """Run ``run()`` under torch.profiler; the union of the card's activity
-    intervals (kernels and copies, over all streams) against wall time."""
+    intervals (kernels and copies, over all streams) against wall time.
+    The gates of a traced runtime's lanes (``repro_card_gate_kernel``) are
+    instrumentation, not work, and are left out.  With ``window``, also the
+    union within the host range that ``run`` marks with
+    ``torch.profiler.record_function(window)``, and with ``markers`` (the
+    number of one-kernel markers that ``run`` launches first, one stream
+    after another) the streams they ran on and each stream's union within
+    the window's intervals of each stream."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1616,26 +1746,44 @@ def device_activity(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:                   # union of intervals, in us
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    events = prof.events()
+    device = sorted((e for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "card_gate" not in e.name),
+                    key=lambda e: e.time_range.start)
+    spans = [(e.time_range.start, e.time_range.end) for e in device]
+    busy_us = union_s(spans)             # in us
     by_name: dict[str, float] = {}
     for ev in prof.key_averages():       # the card's kernels and copies only
         if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.self_device_time_total > 0):
+                and ev.self_device_time_total > 0
+                and "card_gate" not in ev.key):
             # names cut to 60 characters can collide: add them up
             key = ev.key[:60]
             by_name[key] = (by_name.get(key, 0.0)
                             + ev.self_device_time_total / 1e3)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "device_events": len(spans), "device_ms_by_name": top}
+    out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+           "device_events": len(spans), "device_ms_by_name": top}
+    if window is not None:
+        w = next(e.time_range for e in events if e.name == window)
+        out["window_s"] = (w.end - w.start) / 1e6
+        out["window_busy_s"] = union_s(
+            (max(a, w.start), min(b, w.end)) for a, b in spans
+            if b > w.start and a < w.end) / 1e6
+        if markers:
+            out["marker_streams"] = [getattr(e, "device_resource_id", None)
+                                     for e in device[:markers]]
+            by_stream: dict = {}
+            for e in device[markers:]:
+                a, b = e.time_range.start, e.time_range.end
+                if b > w.start and a < w.end:
+                    by_stream.setdefault(
+                        getattr(e, "device_resource_id", None), []).append(
+                        (max(a, w.start), min(b, w.end)))
+            out["window_spans_by_stream"] = by_stream
+    return out
 
 
 def phase_profile(dev, models) -> None:
@@ -1686,6 +1834,521 @@ def phase_profile(dev, models) -> None:
         raise SystemExit("the profiler saw no device activity")
 
 
+# -- trace: instruction records timed on the card ----------------------------------
+def union_s(intervals) -> float:
+    """Length of the union of ``(t0, t1)`` intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def median(xs: list[float]) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def device_lane_records(records) -> list:
+    """Records of instructions that a device lane ran on its stream (the
+    receives the arbiter completes and the graph syncs have no card work)."""
+    return [r for r in records if re.fullmatch(r"N\d+\.device\.\d+", r.lane)
+            and r.kind not in ARBITER_KINDS]
+
+
+def card_records(records) -> list:
+    """Records that carry the card's interval."""
+    return [r for r in records if r.on_card]
+
+
+def record_checks(run: dict) -> dict:
+    """The A10 invariants over one traced run's records: card stamps on
+    every card record, ``t_reg <= t_ready <= t_start <= t_done``, each card
+    interval inside its host interval within ``TRACE_SLACK_S``, the issue
+    latency equal to its pending plus queue wait within 1%, and every gate
+    of steps 2..N held (no gate opened early or given up there)."""
+    records = run["records"]
+    card = device_lane_records(records)
+    stamped = [r for r in card if r.on_card]
+    ordered = all(r.t_reg <= r.t_ready + 1e-9 and r.t_ready <= r.t_start + 1e-9
+                  and r.t_start <= r.t_done + 1e-9 for r in records)
+    outside = [max(r.t_host_start - r.t_start, r.t_done - r.t_host_done)
+               for r in card]
+    wait_err = max(abs((r.t_ready - r.t_reg) + (r.t_start - r.t_ready)
+                       - (r.t_start - r.t_reg))
+                   / max(r.t_start - r.t_reg, 1e-12) for r in records)
+    s0, s1 = run["steady"]
+    missed = [r.name for r in stamped if r.t_done > s0 and r.t_start < s1
+              and r.card_gate not in ("held", "empty")]
+    worst = max(outside, default=0.0)
+    return {"records": len(records), "card_records": len(card),
+            "card_stamped": len(stamped), "ordered": ordered,
+            "card_outside_host_max_s": worst,
+            "wait_sum_max_rel_err": wait_err,
+            "card_gates_whole_run": run["card_gates"],
+            "steady_gates_not_held": missed,
+            "ok": (len(card) > 0 and len(stamped) == len(card) and ordered
+                   and worst <= TRACE_SLACK_S and wait_err <= 0.01
+                   and not missed)}
+
+
+def perfetto_summary(path: Path) -> dict:
+    """Load an exported trace; count execution events per device lane."""
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    per_lane: dict[str, int] = {}
+    for e in events:
+        if e["ph"] == "X" and re.fullmatch(r"N\d+\.device\.\d+",
+                                           names.get(e["tid"], "")):
+            per_lane[names[e["tid"]]] = per_lane.get(names[e["tid"]], 0) + 1
+    lanes = sorted(n for n in names.values()
+                   if re.fullmatch(r"N\d+\.device\.\d+", n))
+    return {"file": str(path.relative_to(ROOT)), "events": len(events),
+            "device_lanes": lanes, "events_per_device_lane": per_lane,
+            "ok": bool(lanes) and all(per_lane.get(n, 0) > 0 for n in lanes)}
+
+
+def trace_inputs(app: str):
+    rng = np.random.default_rng(SEED + 5)
+    if app == "nbody":
+        return (rng.standard_normal((NBODY_N, 3), dtype=np.float32),
+                rng.standard_normal((NBODY_N, 3), dtype=np.float32) * 0.1)
+    return (rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32),
+            rng.standard_normal((WAVE_H, WAVE_W), dtype=np.float32))
+
+
+def trace_run(app: str, nodes: int, devices: int, *, trace: bool,
+              metrics: bool = True, profile: bool = False) -> dict:
+    """One N-body or WaveSim run on a grid: step 1 (which seeds the buffers),
+    steps 2..N and the gather, each ended by a sync; with ``profile`` under
+    torch.profiler.  Traced runs keep their records, critical path and
+    Perfetto export."""
+    from repro_torch.apps import NBody, WaveSim
+    from repro_torch.core import Runtime
+    a, b = trace_inputs(app)
+    steps = TRACE_NBODY_STEPS if app == "nbody" else TRACE_WAVE_STEPS
+    marks = {}
+    with Runtime(nodes, devices, device="cuda", trace=trace,
+                 metrics=metrics) as rt:
+        sim = (NBody(rt, a, b, DT, MASS) if app == "nbody"
+               else WaveSim(rt, a, b, WAVE_C))
+        # each device lane's streams, in the order of their markers
+        lanes = [(f"N{n}.device.{d}", q.stream)
+                 for n, ex in enumerate(rt.executors)
+                 for d, qs in enumerate(ex.backend.device_queues) for q in qs]
+
+        def run():
+            if profile:
+                # one small kernel on each lane's stream, one after another,
+                # so that the profiler's stream ids can be told apart
+                for _, stream in lanes:
+                    with torch.cuda.stream(stream):
+                        torch.ones(1, device=stream.device)
+                    stream.synchronize()
+            marks["t0"] = time.perf_counter()
+            sim.advance(1)
+            rt.sync()
+            with torch.profiler.record_function("steady"):
+                marks["t1"] = time.perf_counter()
+                sim.advance(steps - 1)
+                rt.sync()
+                marks["t2"] = time.perf_counter()
+            sim.gather()
+            marks["t3"] = time.perf_counter()
+
+        activity = (device_activity(run, "steady", markers=len(lanes))
+                    if profile else run())
+        out = {"grid": [nodes, devices], "steps": steps, "trace": trace,
+               "metrics": metrics,
+               "steps_per_s": (steps - 1) / (marks["t2"] - marks["t1"]),
+               "first_step_s": marks["t1"] - marks["t0"],
+               "gather_s": marks["t3"] - marks["t2"]}
+        if activity is not None:
+            out["profiler"] = {k: activity[k] for k in
+                               ("wall_s", "device_busy_s", "device_idle_share",
+                                "device_events", "window_s", "window_busy_s",
+                                "marker_streams")}
+            # each device lane's busy union over its streams in the window
+            ids = activity["marker_streams"]
+            spans = activity["window_spans_by_stream"]
+            per_lane: dict[str, list] = {}
+            for (lane, _), sid in zip(lanes, ids):
+                per_lane.setdefault(lane, []).extend(spans.get(sid, []))
+            out["profiler"]["streams_told_apart"] = (
+                None not in ids and len(set(ids)) == len(ids))
+            out["profiler"]["window_busy_s_per_device"] = {
+                lane: union_s(v) / 1e6 for lane, v in sorted(per_lane.items())}
+            out["profiler"]["window_busy_s_lane_streams"] = union_s(
+                iv for v in per_lane.values() for iv in v) / 1e6
+        if trace:
+            e = rt.tracer.epoch
+            out["records"] = list(rt.tracer.records)
+            out["steady"] = (marks["t1"] - e, marks["t2"] - e)
+            out["critical_path"] = rt.critical_path_report().as_dict()
+            gates = [ex.card_gates for ex in rt.executors]
+            out["card_gates"] = {k: sum(g[k] for g in gates)
+                                 for k in gates[0]}
+            path = ROOT / "build" / "traces" / f"{app}_{nodes}x{devices}.json"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            rt.tracer.to_chrome_trace(path)
+            out["perfetto"] = perfetto_summary(path)
+    return out
+
+
+def busy_report(run: dict) -> dict:
+    """Busy time of the card over steps 2..N (no seeding, no gather) from
+    the run's records and from torch.profiler: the union over every device
+    lane (the simulated devices share card 0) against the profiler's union
+    over the lanes' streams, within TRACE_BUSY_RTOL; each simulated
+    device's own union against the profiler's over its two streams
+    (printed: where devices share the card, a record also counts the time
+    its operations wait for multiprocessors that another device's kernels
+    hold, which the profiler does not); the steady idle shares; and the
+    records' union over the whole run."""
+    s0, s1 = run["steady"]
+    prof = run["profiler"]
+
+    def steady(recs):
+        return union_s((max(r.t_start, s0), min(r.t_done, s1)) for r in recs
+                       if r.t_done > s0 and r.t_start < s1)
+
+    card = card_records(run["records"])
+    busy, prof_busy = steady(card), prof["window_busy_s_lane_streams"]
+    per_device = {lane: steady([r for r in card if r.lane == lane])
+                  for lane in sorted({r.lane for r in card})}
+    ratio = busy / prof_busy
+    return {"records_busy_s_whole_run": union_s((r.t_start, r.t_done)
+                                                for r in card),
+            "steady_window_s": s1 - s0, "steady_busy_s": busy,
+            "steady_idle_share": 1.0 - busy / (s1 - s0),
+            "profiler_window_s": prof["window_s"],
+            "profiler_steady_busy_s": prof_busy,
+            "profiler_steady_idle_share": 1.0 - prof_busy / prof["window_s"],
+            "profiler_busy_s_all_streams": prof["window_busy_s"],
+            "profiler_streams_told_apart": prof["streams_told_apart"],
+            "records_over_profiler": ratio,
+            "steady_busy_s_per_device": per_device,
+            "profiler_steady_busy_s_per_device":
+                prof["window_busy_s_per_device"],
+            "records_over_profiler_per_device": {
+                lane: per_device.get(lane, 0.0) / max(v, 1e-12)
+                for lane, v in prof["window_busy_s_per_device"].items()},
+            "ok": (prof["streams_told_apart"]
+                   and abs(ratio - 1) <= TRACE_BUSY_RTOL)}
+
+
+def phase_trace(dev) -> dict:
+    """A10 on the card: the records of traced N-body and WaveSim runs."""
+    from repro_torch.kernels.nbody import nbody_forces_rows
+    from repro_torch.kernels.stencil5 import wave_step_rows
+    out, ok = {}, True
+    for app, kernel in (("nbody", "timestep"), ("wavesim", "wave")):
+        # 2 x 2, traced and profiled: invariants, busy time against the
+        # profiler's, the steady idle share, the critical path, the export
+        main = trace_run(app, NODES, DEVICES, trace=True, profile=True)
+        checks = record_checks(main)
+        busy = busy_report(main)
+        # steps/s traced (gated, timed lanes), with metrics only (the
+        # default: host stamps, no gates) and bare, in turns
+        configs = {"trace": dict(trace=True), "metrics_only": dict(trace=False),
+                   "bare": dict(trace=False, metrics=False)}
+        rates = {}
+        for name in [*configs, *reversed(configs)]:
+            rates.setdefault(name, []).append(
+                trace_run(app, NODES, DEVICES, **configs[name]))
+        durations_2x2 = [r.t_done - r.t_start for r in card_records(
+            main["records"]) if r.kind == "device_kernel"
+            and r.name.startswith(kernel)]
+        # 1 x 1: one launch a step over the whole range, records serial
+        one = trace_run(app, 1, 1, trace=True, profile=True)
+        one_checks = record_checks(one)
+        recs = [r.t_done - r.t_start for r in card_records(one["records"])
+                if r.kind == "device_kernel" and r.name.startswith(kernel)]
+        a, b = (torch.from_numpy(x).to(dev) for x in trace_inputs(app))
+        if app == "nbody":
+            kernel_ms = cuda_ms(lambda: nbody_forces_rows(a, 0, NBODY_N),
+                                reps=5)
+            body_ms = kernel_ms
+        else:
+            un = torch.empty_like(b)
+            kernel_ms = cuda_ms(lambda: wave_step_rows(a, b, 0, WAVE_H,
+                                                       WAVE_C), reps=20)
+            # the step instruction's work: B2, then the write of its result
+            # into the new field (``un_v.set``)
+            body_ms = cuda_ms(lambda: un.copy_(wave_step_rows(
+                a, b, 0, WAVE_H, WAVE_C)), reps=20)
+        rec_ms = median(recs) * 1e3
+        duration = {"record_median_ms": rec_ms, "records": len(recs),
+                    "kernel_alone_cuda_event_ms": kernel_ms,
+                    "instruction_work_cuda_event_ms": body_ms,
+                    "record_over_event": rec_ms / body_ms,
+                    "ok": abs(rec_ms / body_ms - 1) <= TRACE_DURATION_RTOL}
+        res = {"checks_2x2": checks, "checks_1x1": one_checks,
+               "busy_2x2": busy, "busy_1x1": busy_report(one),
+               "record_median_ms_2x2": median(durations_2x2) * 1e3,
+               "duration_1x1": duration,
+               "critical_path_2x2": rates["trace"][0]["critical_path"],
+               "perfetto_2x2": main["perfetto"],
+               "steps_per_s": {k: [r["steps_per_s"] for r in runs]
+                               for k, runs in rates.items()},
+               "profiled_run": {k: main[k] for k in ("steps_per_s",
+                                                     "first_step_s",
+                                                     "gather_s", "profiler")}}
+        res["gated"] = ["checks_2x2", "checks_1x1", "busy_2x2", "busy_1x1",
+                        "duration_1x1", "perfetto_2x2"]
+        res["ok"] = all(res[k]["ok"] for k in res["gated"])
+        ok &= res["ok"]
+        out[app] = res
+    emit({"phase": "trace", "ok": ok, "bodies": NBODY_N,
+          "field": [WAVE_H, WAVE_W], "slack_s": TRACE_SLACK_S,
+          "duration_rtol": TRACE_DURATION_RTOL,
+          "busy_rtol": TRACE_BUSY_RTOL, **out})
+    if not ok:
+        raise SystemExit("trace phase failed")
+    return out
+
+
+# -- training ----------------------------------------------------------------------
+def train_loop(cfg, dev, base, ckpt_dir=None, **kw):
+    """A TrainLoop whose weights are a copy of ``base`` on ``dev``."""
+    import copy
+
+    from repro_torch.runtime import TrainLoop
+    return TrainLoop(cfg, device=dev, ckpt_dir=ckpt_dir,
+                     init=lambda: copy.deepcopy(base).to(dev), **kw)
+
+
+def phase_train_reference(dev) -> None:
+    """Reduced qwen2-1.5b in f32 with B3 on the card against the CPU port on
+    the same weights and batches; restart from a checkpoint; ElasticTrainer
+    through one injected failure."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ElasticTrainer
+    cfg = dataclasses.replace(get_config(SERVE_ARCH, reduced=True),
+                              flash_attention=True)
+    base = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    kw = dict(global_batch=TRAIN_REF_BATCH, seq_len=TRAIN_REF_SEQ, seed=SEED)
+    cpu = train_loop(cfg, "cpu", base, **kw).run(TRAIN_REF_STEPS)[2].losses
+    card = train_loop(cfg, dev, base, **kw).run(TRAIN_REF_STEPS)[2].losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # restart: 8 steps with a failure at step 5, checkpoints every 4
+    ref_losses = train_loop(cfg, dev, base, **kw).run(8)[2].losses
+    loop = train_loop(cfg, dev, base, ckpt / "restart", ckpt_interval=4, **kw)
+    failed = False
+    try:
+        loop.run(8, fail_at=5)
+    except RuntimeError:
+        failed = True
+    loop2 = train_loop(cfg, dev, base, ckpt / "restart", ckpt_interval=4, **kw)
+    start, state = loop2.restore_or_init()
+    resumed = loop2.run(8 - start, start_step=start, state=state)[2].losses
+    restart_rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(resumed, ref_losses[start:]))
+    restart = {"failed_at_5": failed, "resumed_at": start,
+               "losses": resumed, "uninterrupted": ref_losses[start:],
+               "bitwise": resumed == ref_losses[start:],
+               "max_rel_diff": restart_rel,
+               "ok": failed and start == 5 and restart_rel <= 1e-6}
+    calls = []
+
+    def make_loop(world):
+        calls.append(world)
+        return train_loop(cfg, dev, base, ckpt / "elastic", ckpt_interval=3,
+                          **kw)
+
+    _, metrics, world = ElasticTrainer(make_loop).run(10, world_size=4,
+                                                      fail_at=7)
+    elastic = {"restarts": metrics.restarts, "world": world, "calls": calls,
+               "last_step": max(metrics.steps),
+               "ok": metrics.restarts == 1 and max(metrics.steps) == 9}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ok = rel <= TRAIN_REF_TOL and restart["ok"] and elastic["ok"]
+    emit({"phase": "train-reference", "ok": ok, "arch": cfg.name,
+          "reduced": True, "dtype": cfg.dtype, "flash_attention": True,
+          "batch": [TRAIN_REF_BATCH, TRAIN_REF_SEQ], "steps": TRAIN_REF_STEPS,
+          "card_losses": card, "cpu_losses": cpu, "max_rel_diff": rel,
+          "tol": TRAIN_REF_TOL, "restart": restart, "elastic": elastic})
+    if not ok:
+        raise SystemExit("training on the card disagrees with the CPU's")
+
+
+def loss_and_grad_norm(model, batch) -> tuple[float, float]:
+    """One forward and backward without an update; the gradients are
+    dropped after their norm is taken."""
+    loss = model.loss(batch)
+    loss.backward()
+    params = list(model.parameters())
+    gn = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
+                        for p in params))
+    for p in params:
+        p.grad = None
+    return loss.item(), gn.item()
+
+
+def run_train_launcher() -> dict:
+    """``python -m repro_torch.launch.train --full --flash --steps 2 --batch
+    1 --seq 1024`` once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--full", "--flash", "--steps", "2", "--batch", "1",
+                        "--seq", "1024"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    loss = [ln for ln in lines if ln.startswith("[train] loss")]
+    ok = r.returncode == 0 and len(loss) == 1
+    return {"ok": ok, "returncode": r.returncode, "stdout": lines,
+            "seconds": time.perf_counter() - t0,
+            "stderr_tail": "" if ok else r.stderr[-2000:]}
+
+
+def held_out_loss(model, loop, dev) -> float:
+    """Loss, without gradients, on a batch that the loop never trains on."""
+    toks = torch.from_numpy(
+        loop.data.local_batch(TRAIN_HELD_OUT)["tokens"]).to(dev)
+    with torch.no_grad():
+        return model.loss({"tokens": toks, "labels": toks}).item()
+
+
+def phase_train(dev) -> dict:
+    """qwen2-1.5b at full width through TrainLoop with B3 in every layer's
+    forward: the first step's loss and grad norm against the einsum route,
+    a warm-up step, then the main path of TRAIN_STEPS steps, then more
+    steps up to TRAIN_FALL_STEPS; the loss of a batch never trained on
+    must fall."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.runtime import TrainLoop
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash_attention=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)).requires_grad_(True)
+    loop = TrainLoop(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     prefetch_depth=2, seed=SEED, device=dev,
+                     init=lambda: model)
+    toks = torch.from_numpy(loop.data.local_batch(0)["tokens"]).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    routes = {}
+    for flash in (False, True):
+        model.cfg = dataclasses.replace(cfg, flash_attention=flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routes["flash" if flash else "einsum"] = (
+            *loss_and_grad_norm(model, batch), time.perf_counter() - t0)
+    model.cfg = cfg
+    held_before = held_out_loss(model, loop, dev)
+    (el, eg, _), (fl, fg, _) = routes["einsum"], routes["flash"]
+    route_check = {"einsum": {"loss": el, "grad_norm": eg,
+                              "seconds": routes["einsum"][2]},
+                   "flash": {"loss": fl, "grad_norm": fg,
+                             "seconds": routes["flash"][2]},
+                   "loss_rel_diff": abs(fl - el) / abs(el),
+                   "grad_norm_rel_diff": abs(fg - eg) / abs(eg)}
+    route_check["ok"] = (route_check["loss_rel_diff"] <= TRAIN_LOSS_RTOL
+                         and route_check["grad_norm_rel_diff"]
+                         <= TRAIN_GRAD_NORM_RTOL)
+    state = loop.init_state()
+    t0 = time.perf_counter()
+    _, state, warm = loop.run(1, start_step=0, state=state)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    _, state, m = loop.run(TRAIN_STEPS, start_step=1, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = warm.losses + m.losses
+    # the first Adam steps from random weights raise the loss of batches
+    # they have not seen (PERF.md §6): the fall is read on a held-out
+    # batch after TRAIN_FALL_STEPS steps
+    steps = 1 + TRAIN_STEPS
+    _, state, more = loop.run(TRAIN_FALL_STEPS - steps, start_step=steps,
+                              state=state)
+    held_after = held_out_loss(model, loop, dev)
+    finite = all(math.isfinite(x) for x in
+                 losses + more.losses + [held_before, held_after])
+    ok = (route_check["ok"] and finite and held_after < held_before
+          and launches == cfg.num_layers * TRAIN_STEPS)
+    res = {"phase": "train", "ok": ok, "arch": cfg.name, "full": True,
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": TRAIN_STEPS,
+           "routes_first_step": route_check, "losses": losses,
+           "losses_after_main_path": more.losses,
+           "held_out_batch": TRAIN_HELD_OUT,
+           "held_out_loss_before": held_before,
+           "held_out_loss_after": held_after,
+           "steps_before_held_out_check": TRAIN_FALL_STEPS,
+           "warmup_step_s": warmup_s, "wall_s": wall,
+           "ms_per_step": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
+           "grad_norms": warm.grad_norms + m.grad_norms,
+           "overlap": loop.overlap,
+           "launches": launches,
+           "launches_expected": cfg.num_layers * TRAIN_STEPS,
+           "max_memory_allocated": peak}
+    del loop, state, model, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launcher"] = run_train_launcher()
+    res["ok"] = res["ok"] and res["launcher"]["ok"]
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("training at full width failed")
+    return res
+
+
+def flash_train_timing(dev, g: torch.Generator) -> dict:
+    """B3 at one layer of the train phase (B = 2, S = T = 2048, qwen2's
+    heads, bf16, causal): the output and lse against the plain version's,
+    the gradients under autograd against the einsum route's, the forward
+    timed with and without lse, and the plain blockwise backward beside
+    it."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward,
+                                                     flash_attention_plain)
+    from repro_torch.models.layers import _sdpa, causal_mask
+    B, S, K, G, hd = TRAIN_BATCH, TRAIN_SEQ, 2, 6, 128
+    q = torch.randn(B, S, K, G, hd, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    dout = torch.randn(B, S, K, G, hd, generator=g).to(dev, torch.bfloat16)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10, warmup=2)
+    lse_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
+                     reps=10, warmup=2)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    exp, exp_lse = flash_attention_plain(q, k, v, return_lse=True)
+    checks = {"out": errors(out, exp, "flash_attention.bfloat16"),
+              "lse": errors(lse, exp_lse, "flash_attention.lse")}
+    backward_ms = cuda_ms(lambda: flash_attention_backward(
+        q, k, v, out, lse, dout), reps=3)
+    mask = causal_mask(S, S, device=dev)
+    grads = []
+    for route in ("kernel", "einsum"):
+        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*qkv) if route == "kernel" else _sdpa(*qkv, mask)
+        (o.float() * dout.float()).sum().backward()
+        grads.append([t.grad.float() for t in qkv])
+    errs = {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in zip("qkv", *grads)}
+    checks["gradients"] = {"max_err_over_largest": errs,
+                           "tol": FLASH_GRAD_BF16_TOL,
+                           "ok": max(errs.values()) <= FLASH_GRAD_BF16_TOL}
+    return {"shape": [B, S, S, K, G, hd], "dtype": "bfloat16",
+            "causal": True, "ms": ms, "lse_ms": lse_ms,
+            "backward_plain_ms": backward_ms, **checks,
+            "ok": all(c["ok"] for c in checks.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
@@ -1701,12 +2364,15 @@ def main() -> int:
     phase_reference()
     nbody = phase_nbody(dev)
     wave = phase_wave(dev)
+    phase_trace(dev)
     phase_budget()
     phase_lookahead()
     phase_serving_runtime(dev)
     phase_faults(dev)
     phase_scheduler_launcher()
     phase_serve_reference(dev)
+    phase_train_reference(dev)
+    train = phase_train(dev)
     # full width: f32 weights drawn on the card from SEED, bf16 activations
     serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),
                                     flash_attention=True)
@@ -1722,7 +2388,7 @@ def main() -> int:
                         ("ssm_serve", ssm_cfg, ssm_model)])
     launches = {"nbody_forces_rows": nbody["launches"],
                 "wave_step_rows": wave["launches"],
-                "flash_attention": serve["launches"],
+                "flash_attention": serve["launches"] + train["launches"],
                 "ssd_scan": ssm["launches"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),

@@ -35,13 +35,15 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .allocation import PINNED_HOST, Allocation, is_device_memory
-from .backend import Backend, InOrderQueue, WorkItem
+from .backend import (Backend, InOrderQueue, WorkItem, clamp_to_ready,
+                      whole_card)
 from .buffer import AccessMode
 from .communicator import (Communicator, Payload, ReceiveArbiter,
                            nbytes_of)
@@ -74,7 +76,8 @@ def host_array(values) -> np.ndarray:
     t = values.detach()
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
-    return t.cpu().numpy()
+    with whole_card() if t.is_cuda else nullcontext():
+        return t.cpu().numpy()
 
 
 class BufferView:
@@ -116,8 +119,13 @@ class BufferView:
         self.array[sl] = self._tensor(values)
 
     def _tensor(self, values) -> torch.Tensor:
-        return torch.as_tensor(values, dtype=self.array.dtype,
-                               device=self.array.device)
+        # a host value is copied to the card from pageable memory
+        host = self.array.is_cuda and not (
+            isinstance(values, torch.Tensor)
+            and values.device == self.array.device)
+        with whole_card() if host else nullcontext():
+            return torch.as_tensor(values, dtype=self.array.dtype,
+                                   device=self.array.device)
 
     def _check(self, box: Box) -> None:
         if not self.check_bounds:
@@ -220,11 +228,17 @@ class Executor:
         self._ncards = torch.cuda.device_count() if self._cuda else 1
         self.backend = Backend(num_devices, device_of=self.device_of,
                                queues_per_device=queues_per_device,
-                               host_threads=host_threads)
+                               host_threads=host_threads,
+                               timed=tracer is not None)
         self.store: dict[int, torch.Tensor] = {}     # allocation id -> tensor
         self.arbiter = ReceiveArbiter(node, comm, self.store)
         self.check_bounds = check_bounds
         self.tracer = tracer
+        # outcomes of the card gates of this executor's timed items: "held",
+        # "early" and "expired" (whose card intervals also hold host time),
+        # and "empty" for allocations, which queue no card work and are not
+        # gated (backend.CardGate.outcome)
+        self.card_gates = {"held": 0, "early": 0, "expired": 0, "empty": 0}
         # observability (DESIGN.md §11): wait-state attribution + issue-path
         # histograms.  ``_obs`` gates every added stamp/record so that a
         # bare executor (tracer=None, metrics=None) pays nothing.
@@ -758,7 +772,8 @@ class Executor:
         # with observability on, the lane thread stamps the dequeue time so
         # queue-wait (lane contention) separates from execution time
         fn = self._run_timed if self._obs else self._dispatch[it]
-        item = WorkItem(fn=fn, tag=instr)
+        item = WorkItem(fn=fn, tag=instr, card_work=it not in (
+            InstructionType.ALLOC, InstructionType.FREE))
         self._on_lanes += 1
         if instr.queue[0] == "device":
             q = self.backend.pick_device_queue(instr.queue[1], preferred=queue)
@@ -777,7 +792,10 @@ class Executor:
 
     def _run_timed(self, instr: Instruction) -> None:
         """Backend-lane entry when observability is on: stamp dequeue time
-        (start of execution) so queue-wait separates from execution."""
+        (start of execution) so queue-wait separates from execution.  On a
+        traced card's lane this is the host's side only: the lane gates the
+        item and brackets it with timing events, which ``_obs_done``
+        reads."""
         instr._start_t = time.perf_counter()
         self._dispatch[instr.itype](instr)
 
@@ -861,8 +879,16 @@ class Executor:
         ``t_start - t_reg`` decomposes exactly into the classified pending
         wait plus the queue wait, so the per-instruction histograms sum to
         the measured latency by construction.
+
+        On a traced card's lane ``t_start``/``t_done`` are the card's
+        interval of the instruction's work (``backend.card_times``,
+        clamped); the host's interval, lane dequeue to this drain, goes to
+        the tracer beside them.  Host-pool and arbiter instructions, and
+        every instruction of an executor without a tracer, keep host
+        stamps.
         """
         t_done = time.perf_counter()
+        card = instr.__dict__.pop("_card_t", None)
         t_reg = getattr(instr, "_reg_t", None)
         if t_reg is None:
             return                       # submitted before this executor
@@ -870,6 +896,10 @@ class Executor:
         t_start = getattr(instr, "_start_t", t_ready)
         if t_start < t_ready:
             t_start = t_ready           # lane stamped before the drain raced
+        t_host_start, t_host_done = t_start, t_done
+        if card is not None:
+            t_start, t_done = clamp_to_ready(card[0], card[1], t_ready)
+            self.card_gates[card[2]] += 1
         cls = WAIT_OF.get(getattr(instr, "_blame_it", None), WAIT_DEP)
         if self.metrics is not None:
             pending = (t_ready - t_reg) * 1e6
@@ -889,7 +919,9 @@ class Executor:
             self.tracer.record(
                 self.node, instr, lane, t_reg=t_reg, t_ready=t_ready,
                 t_start=t_start, t_done=t_done, wait_cls=cls,
-                blame_iid=getattr(instr, "_blame_iid", None))
+                blame_iid=getattr(instr, "_blame_iid", None),
+                t_host_start=t_host_start, t_host_done=t_host_done,
+                card_gate=card[2] if card is not None else None)
 
     def _sample_lag(self) -> None:
         """Scheduler-lag time series, sampled at each horizon/epoch: ready-
@@ -971,9 +1003,11 @@ class Executor:
             # to the free pool, which may precede this ALLOC's execution.
             arr = np.empty(a.box.shape, dtype=np.dtype(a.dtype))
         else:
-            arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
-                              device=self._mem_device(a.mid),
-                              pin_memory=self._cuda and a.mid == PINNED_HOST)
+            pinned = self._cuda and a.mid == PINNED_HOST
+            with whole_card() if pinned else nullcontext():
+                arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
+                                  device=self._mem_device(a.mid),
+                                  pin_memory=pinned)
         self.store[a.aid] = arr
         self._account(a.mid, nbytes_of(arr))
 
@@ -996,8 +1030,14 @@ class Executor:
                     zip(box.min, box.max, src.box.min))
         dsl = tuple(slice(a - o, b - o) for a, b, o in
                     zip(box.min, box.max, dst.box.min))
-        # asynchronous on the lane's stream; the lane waits for it
-        darr[dsl].copy_(sarr[ssl], non_blocking=True)
+        # asynchronous on the lane's stream; the lane waits for it.  From or
+        # to pageable memory the driver may wait for the card first
+        dst_view, src_view = darr[dsl], sarr[ssl]
+        pageable = (dst_view.is_cuda or src_view.is_cuda) and any(
+            t.device.type == "cpu" and not t.is_pinned()
+            for t in (dst_view, src_view))
+        with whole_card() if pageable else nullcontext():
+            dst_view.copy_(src_view, non_blocking=True)
 
     @staticmethod
     def _snapshot(view):

@@ -1,4 +1,4 @@
-# Copied from src/repro/core/observability.py.
+# Copied from src/repro/core/observability.py; edited for card timing (InstrRecord).
 """Flight recorder: unified metrics + critical-path / wait-state attribution.
 
 The paper's claim is architectural — instruction-graph scheduling moves the
@@ -181,7 +181,7 @@ class MetricsRegistry:
 # -- per-instruction execution records ---------------------------------------
 
 
-@dataclass
+@dataclass(slots=True)
 class InstrRecord:
     """One executed instruction's full timing breakdown (tracer-epoch secs).
 
@@ -191,10 +191,17 @@ class InstrRecord:
     (``t_ready - t_reg``, classified by ``wait_cls``) plus the queue wait
     (``t_start - t_ready``).  ``blame_iid`` names the last-arriving
     predecessor (same-node iid) — the critical-path walk follows it.
-    """
 
-    __slots__ = ("node", "iid", "kind", "lane", "name", "t_reg", "t_ready",
-                 "t_start", "t_done", "wait_cls", "blame_iid", "tid", "cid")
+    ``t_host_start``/``t_host_done`` are the lane thread's host interval,
+    from dequeue to the executor's drain of the completion.  On a traced
+    card's lane ``card_gate`` is the outcome of the item's gate ("held",
+    "early", "expired", or "empty" for an item without card work;
+    ``backend.CardGate.outcome``) and
+    ``t_start``/``t_done`` are the card's interval of the instruction's work
+    (CUDA timing events around the gated item on the lane's stream; see
+    ``backend.py``); elsewhere ``card_gate`` is None and the two pairs are
+    equal.
+    """
 
     node: int
     iid: int
@@ -209,6 +216,13 @@ class InstrRecord:
     blame_iid: Optional[int]
     tid: Optional[int]
     cid: Optional[int]
+    t_host_start: float
+    t_host_done: float
+    card_gate: Optional[str] = None
+
+    @property
+    def on_card(self) -> bool:
+        return self.card_gate is not None
 
 
 # -- lane utilization ---------------------------------------------------------

@@ -1,4 +1,4 @@
-# Copied from src/repro/core/tracing.py.
+# Copied from src/repro/core/tracing.py; edited for card timing (record, lanes).
 """Per-instruction timeline capture — reproduces the paper's fig. 7 profiles.
 
 The tracer records timestamped spans for the three concurrent activities the
@@ -117,11 +117,14 @@ class Tracer:
 
     def record(self, node: int, instr, lane: str, *, t_reg: float,
                t_ready: float, t_start: float, t_done: float,
-               wait_cls: str, blame_iid: Optional[int]) -> None:
+               wait_cls: str, blame_iid: Optional[int], t_host_start: float,
+               t_host_done: float, card_gate: Optional[str] = None) -> None:
         """Append one instruction's full timing record (raw perf_counter
         stamps; converted to tracer-epoch time here).  Replaces the
         issue/complete pair on the executor's hot path: one lock, one
-        append, and the fig.-7 execution span is derived lazily."""
+        append, and the fig.-7 execution span is derived lazily.  The
+        ``t_host_*`` stamps are the lane thread's interval; with a
+        ``card_gate`` outcome ``t_start``/``t_done`` are the card's."""
         rs = self.record_sample
         if rs > 1 and instr.iid % rs:
             # the keep/drop decision is a pure function of the iid so the
@@ -141,7 +144,8 @@ class Tracer:
             t_reg - e, t_ready - e, t_start - e, t_done - e,
             wait_cls, blame_iid,
             task.tid if task is not None else None,
-            cmd.cid if cmd is not None else None)
+            cmd.cid if cmd is not None else None,
+            t_host_start - e, t_host_done - e, card_gate)
         with self._lock:
             self.records.append(rec)
             self._open.pop((node, instr.iid), None)
@@ -161,9 +165,15 @@ class Tracer:
         for s in spans:
             out[s.lane].append(s)
         for r in records:
-            out[r.lane].append(Span(
-                r.lane, r.kind, r.name, r.t_start, r.t_done,
-                {"iid": r.iid, "node": r.node, "tid": r.tid, "cid": r.cid}))
+            meta = {"iid": r.iid, "node": r.node, "tid": r.tid, "cid": r.cid}
+            if r.on_card:
+                # a card's lane: the span is the card's interval; the lane
+                # thread's host interval rides along in the event's args
+                meta["host_ts_us"] = r.t_host_start * 1e6
+                meta["host_dur_us"] = (r.t_host_done - r.t_host_start) * 1e6
+                meta["card_gate"] = r.card_gate
+            out[r.lane].append(Span(r.lane, r.kind, r.name, r.t_start,
+                                    r.t_done, meta))
         for v in out.values():
             v.sort(key=lambda s: s.t0)
         return out

@@ -8,7 +8,12 @@
 // sliding window; an online softmax whose running max m, sum l and
 // accumulator stay in f32; out = acc / max(l, 1e-30) in the storage type.
 // Key tiles that lie wholly above the diagonal or outside the window of
-// every row of the block are skipped.
+// every row of the block are skipped.  Given an lse pointer, both kernels
+// also store each row's logsumexp, lse = m + log(max(l, 1e-30)) in f32 and
+// natural log, as [B, K, G, S] from their epilogue (the residual of the
+// blockwise backward, repro.kernels.ref._flash_bwd); a row that sees no
+// live key keeps m = -1e30, as in the reference.  A null pointer skips the
+// store.
 //
 // Bound on an H100: operations.  A live query-key pair costs 4 * hd
 // operations (two products) against 2 * hd elements of q and out per row
@@ -80,9 +85,9 @@ __device__ void stage_keys(float* s, const float* src, size_t stride, int k0,
 
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int S,
-                     int n_keys, int KH, int G, int hd, float scale, int causal,
-                     int window, int q_offset) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int n_keys, int KH, int G,
+                     int hd, float scale, int causal, int window, int q_offset) {
   extern __shared__ float4 smem4[];
   const int ld = hd + 4;            // keeps float4 reads of 8 rows conflict-free
   float* sq = reinterpret_cast<float*>(smem4);   // [kRows][ld]
@@ -225,6 +230,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = r0 + ty + kGrid * i;
     if (r >= rows) continue;
     const float d = fmaxf(l[i], 1e-30f);
+    // every thread of the half-warp holds the row's m and l
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(blockIdx.y) * G + r % G) * S + r / G] = m[i] + logf(d);
     float* out = o + q_row(r);
 #pragma unroll
     for (int j = 0; j < kOutChunks; ++j) {
@@ -236,8 +244,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int n_keys, int KH, int G, int hd, float scale,
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+               int B, int S, int n_keys, int KH, int G, int hd, float scale,
                int causal, int window, int q_offset, void* stream) {
   const size_t smem =
       (static_cast<size_t>(kRows + kKeys) * (hd + 4) + kRows * kLdp) * sizeof(float);
@@ -248,8 +256,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S * G + kRows - 1) / kRows, B * KH);
   flash_fwd_f32_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, n_keys, KH, G,
-      hd, scale, causal, window, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, n_keys, KH, G, hd, scale, causal, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,6 +307,7 @@ constexpr int kConsumers = 2;          // consumer warpgroups
 constexpr int kWgmmaThreads = (kConsumers + 1) * kWgThreads;
 constexpr int kChunkBytes = 128;       // one swizzled row of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -499,9 +509,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const __nv_bfloat16* __restrict__ q,
-                       __nv_bfloat16* __restrict__ o, int S, int n_keys, int KH,
-                       int G, int hd, float scale_log2, int causal, int window,
-                       int q_offset, int n_heads) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int S, int n_keys, int KH, int G, int hd, float scale_log2,
+                       int causal, int window, int q_offset, int n_heads) {
   using Tile = WgmmaTile<NC>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
@@ -775,6 +785,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       const int r = wr0 + 16 * warp + g + 8 * h;
       if (r >= rows) continue;
       const float d = fmaxf(l[h], 1e-30f);
+      // m is the row's largest unscaled logit and l sums 2^(s c - m c), so
+      // the natural logsumexp of the scaled logits is (m c + log2 l) ln 2;
+      // the four lanes of a row hold the same m and l
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<size_t>(bh) * G + r % G) * S + r / G] =
+            m[h] == kNegInf ? kNegInf + logf(d)
+                            : (m[h] * scale_log2 + log2f(d)) * kLn2;
       __nv_bfloat16* out = o + q_row(r);
 #pragma unroll
       for (int j = 0; j < Tile::kOut / 4; ++j) {
@@ -829,9 +846,10 @@ bool kv_map(CUtensorMap* map, const void* base, int B, int T, int KH, int hd) {
 }
 
 template <int NC>
-int launch_wgmma_nc(const void* q, const void* k, const void* v, void* o, int B,
-                    int S, int n_keys, int KH, int G, int hd, float scale,
-                    int causal, int window, int q_offset, cudaStream_t stream) {
+int launch_wgmma_nc(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int B, int S, int n_keys, int KH, int G, int hd,
+                    float scale, int causal, int window, int q_offset,
+                    cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   if (!kv_map(&kmap, k, B, n_keys, KH, hd) || !kv_map(&vmap, v, B, n_keys, KH, hd))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -843,36 +861,37 @@ int launch_wgmma_nc(const void* q, const void* k, const void* v, void* o, int B,
   const int n_row_blocks = (S * G + kBlockRows - 1) / kBlockRows;
   flash_fwd_wgmma_kernel<NC><<<n_row_blocks * n_heads, kWgmmaThreads, smem, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), S, n_keys, KH, G, hd, scale * kLog2e,
-      causal, window, q_offset, n_heads);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, n_keys, KH, G,
+      hd, scale * kLog2e, causal, window, q_offset, n_heads);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int n_keys, int KH, int G, int hd, float scale,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                 int B, int S, int n_keys, int KH, int G, int hd, float scale,
                  int causal, int window, int q_offset, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return launch_wgmma_nc<1>(q, k, v, o, B, S, n_keys, KH, G, hd, scale, causal,
-                              window, q_offset, s);
-  return launch_wgmma_nc<2>(q, k, v, o, B, S, n_keys, KH, G, hd, scale, causal,
-                            window, q_offset, s);
+    return launch_wgmma_nc<1>(q, k, v, o, lse, B, S, n_keys, KH, G, hd, scale,
+                              causal, window, q_offset, s);
+  return launch_wgmma_nc<2>(q, k, v, o, lse, B, S, n_keys, KH, G, hd, scale,
+                            causal, window, q_offset, s);
 }
 
 }  // namespace
 
+// lse: null, or f32 [B, K, G, S] for each row's logsumexp
 extern "C" int repro_flash_fwd_f32(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int T, int K, int G,
-                                   int hd, float scale, int causal, int window,
-                                   int q_offset, void* stream) {
-  return launch_f32(q, k, v, o, B, S, T, K, G, hd, scale, causal, window,
+                                   void* o, void* lse, int B, int S, int T, int K,
+                                   int G, int hd, float scale, int causal,
+                                   int window, int q_offset, void* stream) {
+  return launch_f32(q, k, v, o, lse, B, S, T, K, G, hd, scale, causal, window,
                     q_offset, stream);
 }
 
 extern "C" int repro_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                    void* o, int B, int S, int T, int K, int G,
-                                    int hd, float scale, int causal, int window,
-                                    int q_offset, void* stream) {
-  return launch_wgmma(q, k, v, o, B, S, T, K, G, hd, scale, causal, window,
-                    q_offset, stream);
+                                    void* o, void* lse, int B, int S, int T, int K,
+                                    int G, int hd, float scale, int causal,
+                                    int window, int q_offset, void* stream) {
+  return launch_wgmma(q, k, v, o, lse, B, S, T, K, G, hd, scale, causal, window,
+                      q_offset, stream);
 }

@@ -7,6 +7,14 @@ shape and dtype.  Scale ``1/sqrt(hd)``, causal and sliding-window masks with
 ``-1e30``, an online softmax with ``m``, ``l`` and the accumulator in f32,
 and the decode ``q_offset`` (query ``i`` sits at position ``i + q_offset``).
 
+With ``return_lse`` the wrapper also gives each query row's logsumexp,
+``lse = m + log(l)``, f32 ``[B, K, G, S]``, which the kernel writes from its
+epilogue.  Where an input requires grad, :func:`flash_attention` runs as a
+``torch.autograd.Function`` that keeps ``q, k, v, out, lse`` and whose
+backward, :func:`flash_attention_backward`, is the plain PyTorch twin of the
+reference's blockwise backward (``repro.kernels.ref._flash_bwd``, jnp and
+not Pallas): probabilities recomputed per block from ``lse``.
+
 On a CUDA tensor :func:`flash_attention` launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (contiguous, 16-byte aligned, ``hd`` a multiple
 of 8 up to 128): in bfloat16 with TMA loads and ``wgmma`` tensor-core
@@ -72,17 +80,19 @@ def _block_mask(q0: int, k0: int, nq: int, nk: int, T: int, causal: bool,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: Optional[int] = None,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, return_lse: bool = False):
     """Plain PyTorch version: the JAX reference's blockwise online softmax
     (query blocks of 512, key blocks of 1024), logits in f32 from exact
     f32 products, probabilities rounded to ``v``'s dtype before the second
-    product, as ``ref._flash_fwd_impl`` does."""
+    product, as ``ref._flash_fwd_impl`` does.  With ``return_lse`` it
+    returns ``(out, lse)``."""
     _check_args(q, k, v, window, q_offset)
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     qf, kf = q.float(), k.float()
     out = torch.empty_like(q)
+    lse = torch.empty((B, K, G, S), device=q.device)
     for s0 in range(0, S, _Q_BLOCK):
         qblk = qf[:, s0:s0 + _Q_BLOCK]                       # [B,q,K,G,hd]
         nq = qblk.shape[1]
@@ -103,23 +113,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + torch.einsum(
                 "bkgqt,btkh->bkgqh", p.to(v.dtype).float(), vblk.float())
             m = m2
-        o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out[:, s0:s0 + nq] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
-    return out
+        l = torch.clamp_min(l, 1e-30)
+        out[:, s0:s0 + nq] = (acc / l[..., None]).permute(0, 3, 1, 2, 4).to(
+            q.dtype)
+        lse[..., s0:s0 + nq] = m + torch.log(l)
+    return (out, lse) if return_lse else out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Attention of ``q`` ``[B,S,K,G,hd]`` over ``k``, ``v`` ``[B,T,K,hd]``.
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             q_offset: int = 0):
+    """Gradients ``(dq, dk, dv)`` of attention from the forward's ``out`` and
+    ``lse``: the FA2 backward of ``ref._flash_bwd`` in plain PyTorch, over
+    the same blocks (key blocks of 1024 outer, query blocks of 512 inner),
+    with each block's probabilities recomputed from ``lse``.  Products run
+    in f32 and the sums stay in f32 until the end; blocks that the mask
+    empties are skipped (they add zeros in the reference)."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    # D_i = rowsum(dout * out)  [B,K,G,S]
+    D = torch.einsum("bskgh,bskgh->bkgs", out.float(), dof)
+    dq = torch.zeros(qf.shape, device=q.device)
+    dk = torch.zeros(kf.shape, device=q.device)
+    dv = torch.zeros(vf.shape, device=q.device)
+    for t0 in range(0, T, _KV_BLOCK):
+        kblk, vblk = kf[:, t0:t0 + _KV_BLOCK], vf[:, t0:t0 + _KV_BLOCK]
+        nt = kblk.shape[1]
+        for s0 in range(0, S, _Q_BLOCK):
+            nq = min(_Q_BLOCK, S - s0)
+            q0 = s0 + q_offset
+            if causal and t0 > q0 + nq - 1:
+                continue                       # wholly above the diagonal
+            if window is not None and t0 + nt - 1 <= q0 - window:
+                continue                       # wholly left of the window
+            qblk, doblk = qf[:, s0:s0 + nq], dof[:, s0:s0 + nq]
+            logits = torch.einsum("bqkgh,btkh->bkgqt", qblk, kblk) * scale
+            mask = _block_mask(q0, t0, nq, nt, T, causal, window, q.device)
+            p = torch.where(mask, torch.exp(logits - lse[..., s0:s0 + nq, None]),
+                            0.0)
+            dp = torch.einsum("bqkgh,btkh->bkgqt", doblk, vblk)
+            ds = p * (dp - D[..., s0:s0 + nq, None]) * scale
+            dq[:, s0:s0 + nq] += torch.einsum("bkgqt,btkh->bqkgh", ds, kblk)
+            dk[:, t0:t0 + nt] += torch.einsum("bkgqt,bqkgh->btkh", ds, qblk)
+            dv[:, t0:t0 + nt] += torch.einsum("bkgqt,bqkgh->btkh", p, doblk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    CUDA tensors go through the kernel on the current stream; CPU tensors
-    through the plain version.  Each kernel launch adds one to
-    ``flash_attention.launches``.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], q_offset: int, want_lse: bool):
+    """Kernel B3 on the current stream: ``(out, lse)``, ``lse`` None unless
+    ``want_lse``.  Adds one to ``flash_attention.launches``."""
     _check_args(q, k, v, window, q_offset)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
@@ -149,16 +197,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.data_ptr() % 16:
             raise ValueError(f"kernel takes a 16-byte aligned {name}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, K, G, S), device=q.device, dtype=torch.float32)
+           if want_lse else None)
     fn = getattr(_build.library(), fns[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if want_lse else None,
                  B, S, T, K, G, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
                  int(causal), window or 0, q_offset, stream)
     _build.check(err, "flash_attention launch")
     with _count_lock:
         flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B3 (its plain version on the CPU) forward with ``lse``; the plain
+    blockwise backward.  ``lse`` is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, q_offset=q_offset,
+                                             return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, causal, window, q_offset, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, return_lse: bool = False):
+    """Attention of ``q`` ``[B,S,K,G,hd]`` over ``k``, ``v`` ``[B,T,K,hd]``;
+    ``(out, lse)`` with ``return_lse``.
+
+    CUDA tensors go through the kernel on the current stream; CPU tensors
+    through the plain version.  Where autograd records and an input
+    requires grad, the call runs under :class:`_FlashAttention`, so the
+    forward keeps ``lse`` for the plain backward; otherwise the kernel runs
+    without it unless asked.  Each kernel launch adds one to
+    ``flash_attention.launches``.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    elif q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, return_lse=return_lse)
+    else:
+        out, lse = _launch(q, k, v, causal, window, q_offset, return_lse)
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

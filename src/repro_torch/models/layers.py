@@ -2,7 +2,7 @@
 QKV bias), MLPs, embedding and head.
 
 The PyTorch counterpart of ``src/repro/models/layers.py``, for what serving
-the dense, ssm and hybrid models needs.  Parameters are :class:`Tree`
+the dense, ssm and hybrid models and training the dense ones need.  Parameters are :class:`Tree`
 modules with the JAX package's names and layouts (a linear weight is
 ``[d_in, d_out]``), and the functions here take such a tree and tensors, as
 the JAX functions take a pytree.  Activations run in ``cfg.dtype``; norms,
@@ -36,7 +36,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class Tree(nn.Module):
     """Nested dicts of tensors as a module, indexed like the dicts: a tensor
-    becomes a frozen parameter, a dict a subtree."""
+    becomes a frozen parameter, a dict a subtree.  ``requires_grad_()`` on
+    the model makes every weight trainable (the train step does)."""
 
     def __init__(self, obj: dict):
         super().__init__()
@@ -254,8 +255,22 @@ def init_embedding(vocab, d, dtype, generator) -> dict:
 
 
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
-    return p["e"][ids]
+    # F.embedding rather than indexing: its gradient on the CPU sums the
+    # rows in a fixed order (indexing's accumulates in a varying one)
+    return F.embedding(ids, p["e"])
 
 
 def unembed(p, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (x @ p["e"].t().to(x.dtype)).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross entropy in f32; with ``mask``, the masked mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0] - lse
+    loss = -ll
+    if mask is not None:
+        return torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), 1)
+    return torch.mean(loss)

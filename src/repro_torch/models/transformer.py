@@ -1,10 +1,10 @@
 """Dense decoder-only LM with GQA, RoPE, sliding-window attention and a
 KV-cached decode (ring buffer for the sliding window).
 
-The PyTorch counterpart of ``src/repro/models/transformer.py`` for serving.
-JAX's ``scan`` over stacked layers becomes a loop over an ``nn.ModuleList``;
-``remat`` has no meaning without a backward pass.  The MoE family is not
-ported yet.
+The PyTorch counterpart of ``src/repro/models/transformer.py`` for serving
+and training.  JAX's ``scan`` over stacked layers becomes a loop over an
+``nn.ModuleList``; ``remat`` is not ported: the backward keeps every layer's
+activations.  The MoE family is not ported yet.
 """
 
 from __future__ import annotations
@@ -97,6 +97,15 @@ class DecoderLM(L.TreeLM):
         if return_cache:
             return logits, aux, kvs
         return logits, aux
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` shifted by one, plus ``0.01 * aux`` (0 for the
+        dense family), as the JAX package's ``DecoderLM.loss``."""
+        logits, aux = self.forward(batch["tokens"])
+        ce = L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                             batch.get("mask", None))
+        return ce + 0.01 * aux
 
     # -- cached decode --------------------------------------------------------------
     def cache_len(self, max_len: int) -> int:

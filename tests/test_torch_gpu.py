@@ -28,7 +28,7 @@ from repro_torch.kernels.nbody import (nbody_forces_rows,
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
                                           wave_step_rows_plain)
-from repro_torch.runtime import ServeLoop
+from repro_torch.runtime import ServeLoop, TrainLoop
 
 pytestmark = pytest.mark.gpu
 
@@ -173,6 +173,129 @@ def test_flash_kernel_decode_offset(cuda, dtype, T, S, G, hd, window):
     full = flash_attention_plain(q, k, v, window=window)
     torch.testing.assert_close(part.float(), full[:, T - S:].float(),
                                **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,K,G,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
+                                           (False, None)])
+def test_flash_kernel_lse_matches_plain(cuda, dtype, S, T, K, G, hd, causal,
+                                        window):
+    """B3's lse from its epilogue against the plain version's (f32 in both
+    dtypes: the logits are exact f32 products of the same inputs, so only
+    the order of the sums and ex2's 2 ulp differ); the output is bit for bit
+    the launch without lse."""
+    q = _randn(2, S, K, G, hd, seed=31).to(cuda, dtype)
+    k = _randn(2, T, K, hd, seed=32).to(cuda, dtype)
+    v = _randn(2, T, K, hd, seed=33).to(cuda, dtype)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+    _, exp = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, K, G, S)
+    torch.testing.assert_close(lse, exp, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.parametrize("G", [1, 6])
+@pytest.mark.parametrize("window", [None, 32])
+def test_flash_gradients_on_card_match_cpu(cuda, G, window):
+    """f32: the Function's gradients on the card (B3 forward with lse, the
+    plain backward) within 1e-4 of the largest of the CPU's."""
+    shapes = ((2, 200, 2, G, 64), (2, 200, 2, 64), (2, 200, 2, 64))
+    cpu = [_randn(*sh, seed=40 + i).requires_grad_() for i, sh in
+           enumerate(shapes)]
+    card = [t.detach().to(cuda).requires_grad_() for t in cpu]
+    dout = _randn(*shapes[0], seed=44)
+    n0 = flash_attention.launches
+    for args, d in ((cpu, dout), (card, dout.to(cuda))):
+        (flash_attention(*args, window=window) * d).sum().backward()
+    assert flash_attention.launches == n0 + 1
+    for a, b in zip(cpu, card):
+        assert (b.grad.cpu() - a.grad).abs().max() <= 1e-4 * a.grad.abs().max()
+
+
+def test_records_carry_card_time(cuda):
+    """A device lane's record is the card's interval inside the host's: a
+    kernel that sleeps on the card for about 2 ms lasts that long in its
+    record, and the lane's host interval brackets it."""
+    with Runtime(1, 1, trace=True, device="cuda") as rt:
+        X = rt.buffer((4,), init=np.zeros(4), name="X")
+
+        def spin(chunk, xv):
+            torch.cuda._sleep(2_000_000)
+            xv.set(chunk, xv.get(chunk) + 1)
+
+        for i in range(3):
+            rt.submit(f"spin{i}", (4,), [read_write(X, one_to_one())], spin)
+        rt.sync()
+        recs = [r for r in rt.tracer.records if r.kind == "device_kernel"]
+    assert len(recs) == 3
+    for r in recs:
+        assert r.t_ready <= r.t_start <= r.t_done
+        assert r.t_host_start - 2e-4 <= r.t_start
+        assert r.t_done <= r.t_host_done + 2e-4
+        assert r.t_done - r.t_start > 1e-4
+
+
+def test_card_records_leave_host_time_out(cuda):
+    """The gate holds the lane's stream until the item has queued all of
+    its work: an item that sleeps 20 ms on the host between two small card
+    operations lasts microseconds on the card and over 20 ms on the host."""
+    import time
+    with Runtime(1, 1, trace=True, device="cuda") as rt:
+        X = rt.buffer((1024,), init=np.zeros(1024), name="X")
+
+        def slow_host(chunk, xv):
+            y = xv.get(chunk) + 1
+            time.sleep(0.02)
+            xv.set(chunk, y * 2)
+
+        for i in range(3):
+            rt.submit(f"slow{i}", (1024,), [read_write(X, one_to_one())],
+                      slow_host)
+        out = rt.gather(X)
+        recs = [r for r in rt.tracer.records if r.kind == "device_kernel"
+                and r.name.startswith("slow")]
+        gates = rt.executors[0].card_gates
+    np.testing.assert_array_equal(out, np.full(1024, 14.0))
+    assert len(recs) == 3 and gates["expired"] == 0 and gates["held"] >= 3
+    for r in recs:
+        assert r.on_card
+        assert r.t_host_done - r.t_host_start >= 0.02
+        assert r.t_done - r.t_start < 2e-3
+
+
+def test_card_gate_gives_up_on_an_item_that_waits_for_its_stream(cuda):
+    """An item that synchronises with its own stream before the gate opens
+    is delayed by the gate's timeout, not hung, and is counted."""
+    with Runtime(1, 1, trace=True, device="cuda") as rt:
+        X = rt.buffer((8,), init=np.zeros(8), name="X")
+
+        def syncs(chunk, xv):
+            xv.set(chunk, xv.get(chunk) + 1)
+            torch.cuda.current_stream().synchronize()
+
+        rt.submit("syncs", (8,), [read_write(X, one_to_one())], syncs)
+        out = rt.gather(X)
+        gates = rt.executors[0].card_gates
+    np.testing.assert_array_equal(out, np.ones(8))
+    assert gates["expired"] == 1
+
+
+def test_train_loop_on_card_matches_cpu(cuda):
+    """Reduced qwen2-1.5b (f32, B3 on): three TrainLoop steps on the card
+    give the CPU's losses within 1e-4 relative from the same weights."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                              flash_attention=True)
+    base = build_model(cfg).init(torch.Generator().manual_seed(22))
+    losses = []
+    for dev in ("cpu", cuda):
+        loop = TrainLoop(cfg, global_batch=2, seq_len=64, device=dev,
+                         init=lambda dev=dev: copy.deepcopy(base).to(dev))
+        losses.append(loop.run(3)[2].losses)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
 
 
 def test_flash_wrapper_counts_launches_and_rejects_what_it_cannot_take(cuda):

@@ -1,0 +1,521 @@
+"""Observability of the torch port: the runtime-driving cases of
+``tests/test_observability.py`` and ``tests/test_tracing.py`` on the port's
+``Runtime(device="cpu")`` with the same invariants, the same programs on
+both runtimes giving records of the same instructions, and the card-time
+conversion and clamps (``core.backend.card_times``, ``clamp_to_ready``)
+driven with stub events, and the card gate's bookkeeping (``CardGate``)
+with a stub launch.
+
+On the card a device lane's record carries the card's interval and the
+host's beside it (``tests/test_torch_gpu.py``, ``chip_smoke.py`` ``trace``);
+on the CPU the two coincide.
+"""
+
+import json
+import threading
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import repro.core as jax_core
+from repro_torch.core import (Runtime, Tracer, critical_path, one_to_one,
+                              read, read_write, reduction)
+import repro_torch.core as port_core
+from repro_torch.core import backend
+from repro_torch.core.backend import (CardClock, CardGate, card_times,
+                                      clamp_to_ready, whole_card)
+from repro_torch.core.instructions import InstructionType
+from repro_torch.core.observability import (WAIT_CLASSES, InstrRecord,
+                                            lane_utilization)
+
+
+def _program(rt, core=port_core, steps=6):
+    """``_run_traced``'s program of ``tests/test_observability.py``, with the
+    accessors of ``core``, the package that ``rt`` belongs to."""
+    read, read_write = core.read, core.read_write
+    reduction, one_to_one = core.reduction, core.one_to_one
+    N = 64
+    a = rt.buffer((N, N), init=np.ones((N, N)), name="A")
+    b = rt.buffer((N, N), init=np.zeros((N, N)), name="B")
+    E = rt.buffer((1,), init=np.zeros(1), name="E")
+
+    def fwd(chunk, av, bv):
+        bv.set(chunk, av.get(chunk) * 1.001)
+
+    def bwd(chunk, bv, av):
+        av.set(chunk, bv.get(chunk) * 0.999)
+
+    def energy(chunk, av, red):
+        red.contribute(av.get(chunk).sum())
+
+    for i in range(steps):
+        rt.submit(f"fwd{i}", (N, N),
+                  [read(a, one_to_one()), read_write(b, one_to_one())], fwd)
+        rt.submit(f"bwd{i}", (N, N),
+                  [read(b, one_to_one()), read_write(a, one_to_one())], bwd)
+    rt.submit("energy", (N, N),
+              [read(a, one_to_one()), reduction(E, "sum")], energy)
+    rt.sync()
+    return rt
+
+
+def _run_traced(**kw):
+    return _program(Runtime(num_nodes=2, devices_per_node=2, trace=True,
+                            device="cpu", **kw))
+
+
+@pytest.fixture(scope="module")
+def traced():
+    rt = _run_traced()
+    yield rt
+    rt.shutdown()
+
+
+# -- the card clock, with stub events ------------------------------------------
+class _Ev:
+    """A timing event completed at ``ms`` on the card's clock."""
+
+    def __init__(self, ms):
+        self.ms = ms
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
+
+
+@pytest.mark.parametrize("anchor_ms,start_ms,end_ms,t_ready,expect", [
+    # the anchor completed at host time 10 s: card ms 5 -> 10 s
+    (5.0, 7.0, 9.5, 10.0, (10.002, 10.0045)),
+    # ready after the card's start (the anchor's error): start clamped
+    (5.0, 7.0, 9.5, 10.003, (10.003, 10.0045)),
+    # ready after the card's end: both clamped to t_ready
+    (5.0, 7.0, 9.5, 10.01, (10.01, 10.01)),
+    # an empty item: zero duration
+    (0.0, 3.0, 3.0, 9.0, (10.003, 10.003)),
+])
+def test_card_times_convert_and_clamp(anchor_ms, start_ms, end_ms, t_ready,
+                                     expect):
+    t0, t1 = clamp_to_ready(*card_times(_Ev(anchor_ms), 10.0, _Ev(start_ms),
+                                        _Ev(end_ms)), t_ready)
+    assert t0 == pytest.approx(expect[0], abs=1e-12)
+    assert t1 == pytest.approx(expect[1], abs=1e-12)
+    assert t_ready <= t0 <= t1
+
+
+def test_card_times_leave_out_the_record_floor():
+    """The card's record floor moves the start later, never past the end:
+    an item at the floor lasts nothing."""
+    t0, t1 = card_times(_Ev(5.0), 10.0, _Ev(7.0), _Ev(9.5), floor=3e-6)
+    assert (t0, t1) == (pytest.approx(10.002003, abs=1e-12),
+                        pytest.approx(10.0045, abs=1e-12))
+    t0, t1 = card_times(_Ev(5.0), 10.0, _Ev(7.0), _Ev(7.002), floor=3e-6)
+    assert t0 == t1 == pytest.approx(10.002002, abs=1e-12)
+
+
+def test_card_times_duration_comes_from_the_events():
+    """The duration is end - start of the two events, whatever the anchor:
+    an anchor an hour back changes where the interval sits, not its
+    length."""
+    t0, t1 = card_times(_Ev(-3.6e6), 0.0, _Ev(1.0), _Ev(1.25))
+    assert t1 - t0 == pytest.approx(0.25e-3, abs=1e-12)
+
+
+def test_card_clock_ignores_host_devices():
+    import torch
+    clock = CardClock([torch.device("cpu")] * 3)
+    assert clock._anchors == {}
+
+
+def test_bare_executor_creates_no_timing():
+    """A bare executor (no tracer, no metrics) has no clock and untimed
+    lanes, and so has one with metrics alone; a traced one on the CPU has
+    lanes without streams, which time nothing either."""
+    for kw in (dict(metrics=False), dict()):
+        with Runtime(1, 2, device="cpu", **kw) as rt:
+            ex = rt.executors[0]
+            assert ex._obs is (kw == {}) and ex.backend.clock is None
+            assert all(q.clock is None for qs in ex.backend.device_queues
+                       for q in qs)
+    with Runtime(1, 2, trace=True, device="cpu") as rt:
+        ex = rt.executors[0]
+        assert ex.backend.clock is not None
+        assert all(q.clock is None for qs in ex.backend.device_queues
+                   for q in qs)
+
+
+# -- the card gate, with a stub launch -------------------------------------------
+def _stub_gate():
+    launches = []
+    words = np.zeros(2, dtype=np.int32)
+    gate = CardGate(words, 0xbeef,
+                    lambda ptr, item, timeout_ns, stream:
+                    launches.append((ptr, item, timeout_ns, stream)))
+    return gate, words, launches
+
+
+def test_card_gate_opens_the_item_it_closed():
+    gate, words, launches = _stub_gate()
+    for item in (1, 2, 3):
+        gate.close(stream=7)
+        assert launches[-1] == (0xbeef, item,
+                                int(backend.GATE_TIMEOUT_S * 1e9), 7)
+        assert words[0] == item - 1          # the kernel would still wait
+        gate.open()
+        assert words[0] == item and gate.outcome == "held"
+    gate.open()                              # a second open changes nothing
+    assert words[0] == 3 and gate.outcome == "held"
+
+
+def test_card_gate_reports_its_outcome():
+    gate, words, _ = _stub_gate()
+    gate.close(stream=0)
+    backend._lane.gate = gate
+    try:
+        with whole_card():                    # the item waits for the card
+            pass
+    finally:
+        backend._lane.gate = None
+    gate.open()
+    assert words[0] == 1 and gate.outcome == "early"
+    gate.close(stream=0)
+    words[1] = gate.item                      # the kernel gave up waiting
+    gate.open()
+    assert gate.outcome == "expired"
+    gate.close(stream=0)
+    gate.open()
+    assert gate.outcome == "held"
+    with whole_card():                        # off a timed lane: no gate
+        pass
+    assert gate.outcome == "held"
+
+
+def test_whole_card_call_waits_for_closed_gates():
+    """A call that waits for the whole card (a pinned allocation) starts
+    only once every closed gate has opened, and no gate closes
+    meanwhile."""
+    gate, _, _ = _stub_gate()
+    gate.close(stream=0)
+    entered, leave = threading.Event(), threading.Event()
+
+    def alloc():
+        with whole_card():
+            entered.set()
+            leave.wait(5)
+
+    t = threading.Thread(target=alloc)
+    t.start()
+    assert not entered.wait(0.05)
+    gate.open()
+    assert entered.wait(5) and gate.outcome == "held"
+    closer = threading.Thread(target=gate.close, kwargs={"stream": 0})
+    closer.start()
+    closer.join(0.05)
+    assert closer.is_alive()                  # waits for the allocation
+    leave.set()
+    t.join(5)
+    closer.join(5)
+    assert not closer.is_alive()
+    gate.open()
+
+
+def test_whole_card_call_on_a_lane_opens_its_own_gate_first():
+    gate, words, _ = _stub_gate()
+    gate.close(stream=0)
+    backend._lane.gate = gate
+    try:
+        with whole_card():
+            pass
+    finally:
+        backend._lane.gate = None
+    assert words[0] == gate.item and gate.outcome == "early"
+
+
+def test_card_gate_item_numbers_wrap():
+    gate, words, launches = _stub_gate()
+    gate.item = 2**31 - 1
+    gate.close(stream=0)
+    assert launches[-1][1] == -2**31
+    gate.open()
+    assert words[0] == -2**31 and gate.outcome == "held"
+
+
+# -- records ---------------------------------------------------------------------
+def test_records_wait_sum_is_exact(traced):
+    recs = traced.tracer.records
+    assert recs, "traced run produced no instruction records"
+    for r in recs:
+        assert r.t_reg <= r.t_ready + 1e-9
+        assert r.t_ready <= r.t_start + 1e-9
+        assert r.t_start <= r.t_done + 1e-9
+        lat = r.t_start - r.t_reg
+        parts = (r.t_ready - r.t_reg) + (r.t_start - r.t_ready)
+        assert abs(parts - lat) <= 1e-9 + 0.01 * max(lat, 1e-12)
+        assert r.wait_cls in WAIT_CLASSES
+        # on the CPU a lane's host interval is its record's interval
+        assert (r.t_host_start, r.t_host_done) == (r.t_start, r.t_done)
+        assert not r.on_card
+
+
+def test_records_carry_trace_context(traced):
+    kernels = [r for r in traced.tracer.records if r.kind == "device_kernel"]
+    assert kernels
+    for r in kernels:
+        assert r.tid is not None and r.cid is not None
+    assert {r.node for r in traced.tracer.records} == {0, 1}
+
+
+def test_records_match_the_reference_runtime(traced):
+    """The same program on the JAX package's runtime records the same
+    instructions: per node, the same kinds in the same numbers."""
+    ref = jax_core.Runtime(num_nodes=2, devices_per_node=2, trace=True)
+    try:
+        _program(ref, jax_core)
+
+        def census(recs):
+            out = {}
+            for r in recs:
+                out[(r.node, r.kind)] = out.get((r.node, r.kind), 0) + 1
+            return out
+
+        assert census(traced.tracer.records) == census(ref.tracer.records)
+    finally:
+        ref.shutdown()
+
+
+def test_critical_path_report_is_consistent(traced):
+    rep = critical_path(traced.tracer)
+    assert rep.total_us > 0
+    assert rep.chain_len >= 1
+    assert rep.n_instructions == len(traced.tracer.records)
+    assert 0.0 <= rep.scheduler_fraction <= 1.0
+    accounted = sum(rep.by_layer.values()) + sum(rep.by_wait.values())
+    assert accounted <= rep.total_us * (1 + 1e-6)
+    assert rep.unattributed_us == pytest.approx(
+        rep.total_us - accounted, rel=1e-6, abs=1e-3)
+    text = rep.render()
+    assert "critical path:" in text
+    assert "scheduler share of critical path" in text
+    assert rep.as_dict()["total_us"] == rep.total_us
+    assert traced.critical_path_report().total_us > 0
+
+
+def test_utilization_report_reads_record_intervals(traced):
+    util = traced.utilization_report()
+    assert util == lane_utilization(traced.tracer.records)
+    assert util["span_us"] > 0 and util["lanes"]
+    for lane in util["lanes"].values():
+        assert 0.0 <= lane["busy_frac"] <= 1.0 + 1e-9
+
+
+def test_critical_path_empty_tracer():
+    rep = critical_path(Tracer())
+    assert rep.total_us == 0.0 and rep.chain_len == 0
+
+
+def test_runtime_metrics_snapshot_unified(traced):
+    snap = traced.metrics()
+    for key in ("counters", "gauges", "histograms", "comm", "memory",
+                "lookahead", "executor", "instants"):
+        assert key in snap, key
+    h = snap["histograms"]
+    for n in (0, 1):
+        assert h[f"executor.N{n}.issue_us"]["count"] > 0
+        for cls in WAIT_CLASSES:
+            assert f"executor.N{n}.wait_{cls}_us" in h
+    g = snap["gauges"]
+    assert "executor.N0.inflight" in g
+    assert "lookahead.N0.queued" in g
+    assert "sched.N0.horizon_lag" in g
+    recs = traced.tracer.records
+    for n in (0, 1):
+        hist_sum = h[f"executor.N{n}.issue_us"]["sum_us"]
+        rec_sum = sum((r.t_start - r.t_reg) * 1e6 for r in recs if r.node == n)
+        assert hist_sum == pytest.approx(rec_sum, rel=0.01)
+        assert h[f"executor.N{n}.issue_us"]["count"] == \
+            sum(1 for r in recs if r.node == n)
+
+
+def test_runtime_metrics_disabled_still_works():
+    rt = Runtime(num_nodes=1, devices_per_node=1, metrics=False, device="cpu")
+    try:
+        B = rt.buffer((8,), init=np.zeros(8), name="b")
+        rt.submit("k", (8,), [read_write(B, one_to_one())],
+                  lambda c, v: v.set(c, v.get(c) + 1))
+        rt.sync()
+        assert rt.metrics_registry is None
+        snap = rt.metrics()
+        assert snap["counters"] == {} and snap["histograms"] == {}
+        assert "memory" in snap and "comm" in snap
+        assert rt.executors[0]._obs is False
+    finally:
+        rt.shutdown()
+
+
+# -- Perfetto export -------------------------------------------------------------
+def _fake_instr(iid):
+    return SimpleNamespace(iid=iid, name=f"i{iid}", queue=("device", 0),
+                           itype=InstructionType.DEVICE_KERNEL, command=None)
+
+
+def test_card_record_exports_card_span_and_host_args(tmp_path):
+    """A device lane's execution event is the card's interval; the host
+    interval is in its args.  Tracks and names are the reference's."""
+    tr = Tracer()
+    e = tr.epoch
+    tr.record(0, _fake_instr(1), "N0.device.0", t_reg=e + 1e-3,
+              t_ready=e + 2e-3, t_start=e + 4e-3, t_done=e + 6e-3,
+              wait_cls="dep", blame_iid=None, t_host_start=e + 3e-3,
+              t_host_done=e + 7e-3, card_gate="held")
+    tr.record(0, _fake_instr(2), "N0.device.0", t_reg=e + 1e-3,
+              t_ready=e + 2e-3, t_start=e + 7e-3, t_done=e + 8e-3,
+              wait_cls="dep", blame_iid=None, t_host_start=e + 7e-3,
+              t_host_done=e + 8e-3)
+    r1, r2 = tr.records
+    assert (r1.t_host_start, r1.t_host_done) == pytest.approx((3e-3, 7e-3))
+    assert (r2.t_host_start, r2.t_host_done) == (r2.t_start, r2.t_done)
+    assert r1.on_card and not r2.on_card
+    out = tmp_path / "t.json"
+    tr.to_chrome_trace(out)
+    events = json.loads(out.read_text())["traceEvents"]
+    names = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    assert names == {"N0.device.0"}
+    xs = {e["args"]["iid"]: e for e in events if e["ph"] == "X"}
+    assert xs[1]["ts"] == pytest.approx(4e3) and xs[1]["dur"] == pytest.approx(2e3)
+    assert xs[1]["args"]["host_ts_us"] == pytest.approx(3e3)
+    assert xs[1]["args"]["host_dur_us"] == pytest.approx(4e3)
+    assert xs[1]["args"]["card_gate"] == "held"
+    assert "host_ts_us" not in xs[2]["args"]
+
+
+def test_chrome_trace_from_live_runtime(tmp_path):
+    with Runtime(num_nodes=2, devices_per_node=1, trace=True,
+                 device="cpu") as rt:
+        X = rt.buffer((8,), init=np.arange(8.0), name="X")
+        E = rt.buffer((1,), init=np.zeros(1), name="E")
+
+        def k(chunk, xv, red):
+            red.contribute(xv.get(chunk))
+
+        rt.submit("k", (8,), [read(X, one_to_one()), reduction(E, "sum")], k)
+        rt.sync()
+        tr = rt.tracer
+    out = tmp_path / "live.json"
+    tr.to_chrome_trace(out)
+    events = json.loads(out.read_text())["traceEvents"]
+    cats = {e.get("cat") for e in events if e["ph"] == "X"}
+    assert {"fill_identity", "local_reduce", "coll_send", "coll_recv",
+            "global_reduce"} <= cats
+    lanes = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    assert any(".coll." in name for name in lanes), lanes
+
+
+@pytest.fixture(scope="module")
+def live_export(tmp_path_factory):
+    """``_export_live_trace`` of ``tests/test_tracing.py`` on the port."""
+    with Runtime(num_nodes=2, devices_per_node=2, trace=True,
+                 device="cpu") as rt:
+        X = rt.buffer((64,), init=np.arange(64.0), name="X")
+        E = rt.buffer((1,), init=np.zeros(1), name="E")
+
+        def bump(chunk, xv):
+            xv.set(chunk, xv.get(chunk) + 1)
+
+        def tally(chunk, xv, red):
+            red.contribute(xv.get(chunk).sum())
+
+        for i in range(4):
+            rt.submit(f"bump{i}", (64,), [read_write(X, one_to_one())], bump)
+        rt.submit("tally", (64,),
+                  [read(X, one_to_one()), reduction(E, "sum")], tally)
+        rt.sync()
+        out = tmp_path_factory.mktemp("trace") / "roundtrip.json"
+        rt.tracer.to_chrome_trace(out)
+        records = list(rt.tracer.records)
+    return json.loads(out.read_text())["traceEvents"], records
+
+
+def test_export_thread_metadata_covers_every_event(live_export):
+    events, _ = live_export
+    named = {e["tid"] for e in events
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    used = {e["tid"] for e in events if "tid" in e}
+    assert used <= named, f"events on unnamed threads: {used - named}"
+
+
+def test_export_flow_links_are_well_formed(live_export):
+    events, _ = live_export
+    starts = {(e["cat"], e["id"]): e["ts"] for e in events if e["ph"] == "s"}
+    finishes = [e for e in events if e["ph"] == "f"]
+    assert finishes, "no flow arrows exported"
+    for e in finishes:
+        key = (e["cat"], e["id"])
+        assert key in starts, f"flow finish without start: {key}"
+        assert starts[key] <= e["ts"] + 1e-6
+    ids = {e["id"] for e in finishes}
+    assert any(i.startswith("t") for i in ids)
+    assert any(i.startswith("i") for i in ids)
+
+
+def test_export_instruction_flows_complete(live_export):
+    events, records = live_export
+    flow_ids = {e["id"] for e in events if e["ph"] == "f"}
+    linkable = [r for r in records if r.tid is not None]
+    assert linkable
+    missing = [f"i{r.node}.{r.iid}" for r in linkable
+               if f"i{r.node}.{r.iid}" not in flow_ids]
+    assert not missing, f"records without flow arrows: {missing[:5]}"
+
+
+def test_export_wait_spans_balanced(live_export):
+    events, records = live_export
+    waits = [e for e in events if e.get("cat") == "wait"]
+    assert waits, "no wait-state spans exported"
+    per_id: dict[str, int] = {}
+    for e in waits:
+        assert e["ph"] in ("b", "e")
+        assert e["name"].startswith("wait:")
+        per_id[e["id"]] = per_id.get(e["id"], 0) + (1 if e["ph"] == "b" else -1)
+    assert all(v == 0 for v in per_id.values()), "unbalanced b/e pairs"
+    rec_ids = {f"w{r.node}.{r.iid}" for r in records}
+    assert set(per_id) <= rec_ids
+
+
+def test_export_counter_tracks_present(live_export):
+    events, _ = live_export
+    counters = [e for e in events if e["ph"] == "C"]
+    assert counters
+    for e in counters:
+        assert "value" in e["args"]
+    names = {e["name"] for e in counters}
+    assert any(n.startswith("executor.N") and n.endswith(".inflight")
+               for n in names), names
+
+
+def test_sampled_trace_still_analyzable():
+    tr = Tracer(record_sample=3)
+    rt = Runtime(1, 2, device="cpu")
+    rt.tracer = tr
+    for ex in rt.executors:
+        ex.tracer = tr
+    buf = rt.buffer((16,), init=np.zeros(16))
+    for _ in range(6):
+        rt.submit("inc", (16,), [read_write(buf, one_to_one())],
+                  lambda c, v: v.set(c, v.get(c) + 1))
+    out = rt.gather(buf)
+    rt.shutdown()
+    assert np.array_equal(out, np.full(16, 6.0))
+    assert tr.records_sampled_out > 0
+    assert tr.lanes()
+    assert critical_path(tr).total_us >= 0.0
+
+
+def test_instr_record_defaults_host_interval():
+    """The host interval is always given; a record is a card record only
+    where the executor says so."""
+    r = InstrRecord(0, 1, "device_kernel", "N0.device.0", "k", 0.0, 0.1, 0.2,
+                    0.3, "dep", None, None, None, 0.2, 0.3)
+    assert (r.t_host_start, r.t_host_done) == (0.2, 0.3)
+    assert r.card_gate is None and r.on_card is False
+    with pytest.raises(TypeError):
+        InstrRecord(0, 1, "device_kernel", "N0.device.0", "k", 0.0, 0.1, 0.2,
+                    0.3, "dep", None, None, None)
