@@ -22,7 +22,11 @@ Phases, each printing one JSON line:
                 einsum route; B4 at the shapes of
                 ``tests/test_kernels.py``, a ragged s = 1000, the serving
                 shape (b 4, s 2048, h 32, p 64, n 128, chunk 64), s = 4096
-                and a near 0, float32 and bfloat16.
+                and a near 0, float32 and bfloat16; B3 also at the
+                granite-moe heads (hd 64, K 8, G 2 and 3, S = T = 2048) and
+                InternVL's (hd 128, K 8, G 6, S = T = 1280); B4's gradients
+                under autograd (its forward, the plain backward) against
+                autograd through the plain version, f32 and bf16.
 3. reference  - the examples' own small configurations through the port
                 against float64 numpy programs written here: quickstart
                 N-body and WaveSim 256 x 128 on 2 x 2; examples/nbody.py's
@@ -64,6 +68,13 @@ Phases, each printing one JSON line:
                 on the card (B3 on; B4 in every Mamba2 layer's prefill)
                 against the same weights served by the port on the CPU, which
                 the tests hold against the JAX package.
+6a. zoo-reference - reduced granite-moe-1b-a400m, granite-moe-3b-a800m,
+                whisper-tiny and internvl2-26b in float32 on the card (B3 on)
+                against the same weights on the CPU: forward logits, the
+                family's prefill step plus 4 decode steps, the loss and
+                every gradient; the loss and gradients also of reduced
+                mamba2-370m and zamba2-7b (B4 under autograd); the card's
+                B3 and B4 launches.
 6b. train-reference - reduced qwen2-1.5b in f32 with B3, three TrainLoop
                 steps on the card against the CPU port on the same weights
                 and batches; a run failing at step 5 restored from its
@@ -76,6 +87,31 @@ Phases, each printing one JSON line:
                 tokens/s, peak memory, 28 B3 launches a step, the first
                 batch's loss lower after the steps than before); then ``python -m repro_torch.launch.train --full
                 --flash --steps 2 --batch 1 --seq 1024`` once.
+6d. moe-train - granite-moe-1b-a400m at full width through ``TrainLoop``
+                under the train phase's rules (B3 forward, plain backward,
+                the einsum route as reference, the held-out check).
+6e. ssm-train - mamba2-370m at full width through ``TrainLoop``: B4 under
+                autograd in every layer (the kernel's forward, the plain
+                backward), the first step against the plain scan on the
+                card (loss within 1e-3, grad norm within 1e-2 relative),
+                a warm-up step, then 4 steps of 2 x 2048 tokens.
+6f. audio     - whisper-tiny at full width (1500 frames) in f32: encode, the
+                audio prefill step, 32 decode steps from an empty cache
+                against the teacher-forced decoder on the same tokens
+                (1e-4); then 4 ``TrainLoop`` steps of 4 x 448 tokens in
+                bf16.  No kernel runs (the einsum route, as the reference).
+6g. moe-serve - granite-moe-3b-a800m at full width through ``ServeLoop``:
+                the serve phase's traffic with prompt lengths rounded to
+                multiples of 128 (4 x S divides into MoE groups of 512),
+                f32 weights, bf16 activations, B3 in every prefill layer,
+                after a warm-up batch; one prefill batch in f32 activations
+                held against the einsum route (1e-3 of the largest logit),
+                the same in bf16 printed; then the launcher once.
+6h. vlm       - internvl2-26b at full width with bf16 weights (40 GB): 2
+                requests of 256 image and 1024 text tokens through the vlm
+                prefill step (B3 in each of 48 layers) and 16 decode steps,
+                after a warm-up; held against the einsum route by the serve
+                rule.
 7. serve      - qwen2-1.5b at full width through ``repro_torch.runtime.
                 ServeLoop``: 8 requests of 1024-2048 tokens, 4 per batch, 32
                 new tokens each, f32 weights, bf16 activations, flash
@@ -97,7 +133,9 @@ Phases, each printing one JSON line:
                 PyTorch call (``scaled_dot_product_attention``), and its
                 error against the plain version there; B1's, B3's and B4's
                 achieved TFLOP/s; B3 at the train shape with and without
-                lse, beside the plain backward.
+                lse, beside the plain backward; B3 at granite-moe-3b's
+                serving heads beside the library call and its plain
+                backward; B4 at the ssm-train shape and its plain backward.
 10. budget    - both memory-budget demos on the card at 50% of their
                 unbudgeted device high-water mark: three phased N-body
                 simulations of 2^17 float32 bodies (1 x 1, 8 steps each,
@@ -141,8 +179,9 @@ Phases, each printing one JSON line:
                 device time by kernel.
 16. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5, 6c, 7 and 8 and each run of phase 12 are the main path:
-every launch count is set to 0 just before each and read just after.
+Phases 4, 5, 6c, 6d, 6e, 6g, 6h, 7 and 8 and each run of phase 12 are
+the main path: every launch count is set to 0 just before each and read
+just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
 before printing anything on standard output.
@@ -319,6 +358,42 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # step's), read before the warm-up step and after TRAIN_FALL_STEPS steps
 TRAIN_HELD_OUT, TRAIN_FALL_STEPS = 10**6, 20
 TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-3, 1e-2
+# zoo-reference: reduced models in f32, card against CPU on the same
+# weights: logits within SERVE_REF_TOL, losses within ZOO_LOSS_RTOL relative
+# and every gradient within ZOO_GRAD_TOL of the largest of the CPU's
+# (tests/test_torch_train.py's tolerances)
+ZOO_REF_ARCHS = ("granite-moe-1b-a400m", "granite-moe-3b-a800m",
+                 "whisper-tiny", "internvl2-26b")
+ZOO_TRAIN_ARCHS = ZOO_REF_ARCHS + (SSM_ARCH, "zamba2-7b")
+ZOO_LOSS_RTOL, ZOO_GRAD_TOL = 1e-5, 1e-4
+# moe-serve: granite-moe-3b-a800m at full width through ServeLoop, the
+# serve phase's traffic with every prompt a multiple of MOE_PROMPT_STEP
+# tokens long, so that a batch's 4 x S tokens divide into MoE groups of
+# moe_group = 512 (the model refuses other counts, as the reference does)
+MOE_SERVE_ARCH, MOE_PROMPT_STEP = "granite-moe-3b-a800m", 128
+# moe-serve's gate: one prefill batch with f32 activations, B3 against the
+# einsum route.  Each B3 launch is held against the einsum route on the same
+# q, k, v (TOL's f32 tolerance), and the last-token logits of every row that
+# no routing flip touched within this share of their largest magnitude (f32
+# sums in other orders, 32 layers).  A flip (a token whose top-8 experts
+# differ between the routes, from two probabilities within the f32 sums'
+# error of each other) is not rare at this width (7168 tokens x 8 argmax
+# rounds a layer; PERF.md §6), and a flip also moves the capacity slots of
+# the rest of its 512-token group, so the rows it touches are printed, not
+# gated; so is the whole comparison in bf16.
+MOE_F32_TOL = 1e-3
+# moe-train: granite-moe-1b-a400m at full width through TrainLoop, under the
+# train phase's rules and sizes
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+# audio: whisper-tiny at full width (1500 frames); decode steps from an
+# empty cache against the teacher-forced decoder on the same tokens, f32
+# activations, within AUDIO_TOL absolute; then TrainLoop steps
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_SEQ = "whisper-tiny", 4, 448
+AUDIO_DECODE_STEPS, AUDIO_TRAIN_STEPS, AUDIO_TOL = 32, 4, 1e-4
+# vlm: internvl2-26b at full width with bf16 weights (f32 would be 80 GB):
+# VLM_REQUESTS requests of vis_tokens image and VLM_TEXT text tokens, then
+# VLM_DECODE_STEPS decode steps; held against the einsum route by SERVE_TOL
+VLM_ARCH, VLM_REQUESTS, VLM_TEXT, VLM_DECODE_STEPS = "internvl2-26b", 2, 1024, 16
 
 
 def emit(obj) -> None:
@@ -449,11 +524,14 @@ def flash_cases(dev, g: torch.Generator) -> list[dict]:
     # (S, T, K, G, hd): tests/test_kernels.py's shapes; the serving heads
     # (G 6, hd 128); hd 80 (h2o-danube) and 24; zamba2-7b's shared block
     # (hd 112, G 1); S * G not a multiple of the bf16 kernel's 128-row blocks
-    # and T not a multiple of its 128-key tiles
+    # and T not a multiple of its 128-key tiles; the granite-moe heads (hd
+    # 64, K 8, G 2 and 3) at a 2048-token prefill and InternVL's (hd 128,
+    # K 8, G 6) at its 1280
     shapes = [(64, 64, 2, 3, 32), (128, 128, 1, 4, 64), (48, 96, 2, 1, 16),
               (256, 256, 4, 2, 128), (1000, 1000, 2, 6, 128),
               (300, 333, 2, 4, 80), (77, 77, 2, 5, 24), (300, 333, 1, 1, 112),
-              (257, 300, 2, 6, 80)]
+              (257, 300, 2, 6, 80), (2048, 2048, 8, 2, 64),
+              (2048, 2048, 8, 3, 64), (1280, 1280, 8, 6, 128)]
     for S, T, K, G, hd in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             name = f"flash_attention.{str(dtype).split('.')[1]}"
@@ -578,6 +656,41 @@ def ssd_cases(dev, g: torch.Generator) -> list[dict]:
             e["ok"] = e["ok"] and e["state"]["ok"]
             cases.append({"kernel": "ssd_scan", "shape": [b, s, h, p, n, chunk],
                           "a_scale": a_scale, "dtype": str(dtype), **e})
+    return cases + ssd_grad_cases(dev, g)
+
+
+def ssd_grad_cases(dev, g: torch.Generator) -> list[dict]:
+    """B4 under autograd (its forward, the backward autograd of the plain
+    version recomputed from the inputs) against autograd through the plain
+    version on the card, f32 and bf16, a loss on y alone and on y and the
+    final state: the same backward from the same inputs, so the gradients
+    agree within 1e-6 of the largest."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    cases = []
+    b, s, h, p, n, chunk = 2, 300, 4, 64, 128, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        base = ssd_inputs(b, s, h, p, n, dtype, dev, g)
+        dy = torch.randn(b, s, h, p, generator=g).to(dev)
+        dst = torch.randn(b, h, p, n, generator=g).to(dev)
+        for use_state in (False, True):
+            grads = []
+            for fn in (ssd_scan, ssd_scan_plain):
+                ins = [t.detach().clone().requires_grad_() for t in base]
+                y, st = fn(*ins, chunk)
+                loss = (y.float() * dy).sum()
+                if use_state:
+                    loss = loss + (st * dst).sum()
+                loss.backward()
+                grads.append([t.grad.float() for t in ins])
+            errs = {k: float((a - e).abs().max() / e.abs().max())
+                    for k, a, e in zip(("x", "a", "B", "C"), *grads)}
+            cases.append({"kernel": "ssd_scan", "gradients": True,
+                          "shape": [b, s, h, p, n, chunk], "dtype": str(dtype),
+                          "use_state": use_state,
+                          "max_err_over_largest": errs,
+                          "max_abs_err": max(float((a - e).abs().max())
+                                             for a, e in zip(*grads)),
+                          "tol": 1e-6, "ok": max(errs.values()) <= 1e-6})
     return cases
 
 
@@ -1381,6 +1494,134 @@ def phase_serve_reference(dev) -> None:
         raise SystemExit("a reduced model on the card disagrees with the CPU's")
 
 
+def zoo_batch(cfg, dev, seq: int = 64) -> dict:
+    """A training batch of 2 x ``seq`` tokens (with frames or image features
+    for audio and vlm), drawn with numpy from SEED, on ``dev``."""
+    from repro_torch.launch.inputs import train_batch
+    return train_batch(cfg, 2, seq, rng=np.random.default_rng(SEED),
+                       device=dev)
+
+
+def zoo_forward(model, cfg, batch):
+    if cfg.family in ("audio", "vlm"):
+        return model.forward(batch)[0]
+    return model.forward(batch["tokens"])[0]
+
+
+def zoo_prefill_decode(model, cfg, batch, steps: int = 4) -> list:
+    """The family's prefill step, then ``steps`` decode steps fed the
+    batch's own tokens; the logits of each.  The audio prefill step gives
+    logits alone, so its decode steps start from an empty cache."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(model, cfg, 96)
+    decode = make_decode_step(model, cfg)
+    toks = batch["tokens"]
+    if cfg.family == "audio":
+        out = [prefill(batch)]
+        enc = model.encode(batch["frames"])
+        cache = model.init_cache(toks.shape[0], 96, toks.device)
+        for t in range(steps):
+            logits, cache = decode(cache, toks[:, t:t + 1], enc)
+            out.append(logits)
+        return out
+    logits, cache = prefill(batch)
+    out = [logits]
+    for t in range(steps):
+        logits, cache = decode(cache, toks[:, t:t + 1])
+        out.append(logits)
+    return out
+
+
+def zoo_reference_one(dev, arch: str) -> dict:
+    """Reduced ``arch`` in f32 (B3 and B4 on) on the card against the same
+    weights on the CPU: forward logits and prefill plus 4 decode steps
+    (not for the ssm and hybrid families, which serve-reference holds), the
+    loss and every gradient; the card's kernel launches."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              flash_attention=True)
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    card = copy.deepcopy(cpu).to(dev)
+    res = {"arch": cfg.name, "family": cfg.family, "reduced": True,
+           "dtype": cfg.dtype, "layers": cfg.num_layers}
+    serves = arch in ZOO_REF_ARCHS
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    n0 = {k: f.launches for k, f in counters.items()}
+    errs = []
+    if serves:
+        with torch.inference_mode():
+            outs = []
+            for model, d in ((cpu, "cpu"), (card, dev)):
+                batch = zoo_batch(cfg, d)
+                outs.append([zoo_forward(model, cfg, batch)]
+                            + zoo_prefill_decode(model, cfg, batch))
+        errs = [float((g.cpu() - r).abs().max()) for r, g in zip(*outs)]
+        res.update(forward_max_abs_err=errs[0], prefill_max_abs_err=errs[1],
+                   decode_max_abs_err=max(errs[2:]), tol=SERVE_REF_TOL)
+    losses, grads = [], []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        model.requires_grad_(True)
+        loss = model.loss(zoo_batch(cfg, d))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    grad_err = max(float((grads[1][k].cpu() - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                   for k, g in grads[0].items())
+    launches = {k: f.launches - n0[k] for k, f in counters.items()}
+    # B3 in every attention layer of a forward (the forward, the prefill
+    # and the loss's; the decode steps take the einsum route), B4 in every
+    # Mamba2 layer's
+    attn = {"moe": cfg.num_layers, "vlm": cfg.num_layers, "audio": 0,
+            "ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    forwards = 3 if serves else 1
+    want = {"flash_attention": attn[cfg.family] * forwards,
+            "ssd_scan": mamba * forwards}
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    res.update(cpu_loss=losses[0], card_loss=losses[1], loss_rel_diff=loss_rel,
+               loss_rtol=ZOO_LOSS_RTOL, grad_max_err_over_largest=grad_err,
+               grad_tol=ZOO_GRAD_TOL, launches=launches,
+               launches_expected=want)
+    res["ok"] = (all(e <= SERVE_REF_TOL for e in errs)
+                 and loss_rel <= ZOO_LOSS_RTOL and grad_err <= ZOO_GRAD_TOL
+                 and launches == want)
+    return res
+
+
+def phase_zoo_reference(dev) -> None:
+    runs = [zoo_reference_one(dev, arch) for arch in ZOO_TRAIN_ARCHS]
+    ok = all(r["ok"] for r in runs)
+    emit({"phase": "zoo-reference", "ok": ok, "runs": runs})
+    if not ok:
+        raise SystemExit("a reduced zoo model on the card disagrees with the "
+                         "CPU's")
+
+
+def logit_agreement(got: torch.Tensor, ref: torch.Tensor, tol: float) -> dict:
+    """Last-token logits ``got`` against ``ref`` (``[rows, V]``): each row's
+    largest difference over ``ref``'s largest magnitude, and the rows whose
+    first token (the argmax) differs where ``ref``'s top-2 margin exceeds
+    ``tol`` of that magnitude."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().amax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    decided = ((top2[:, 0] - top2[:, 1]) > tol * scale).tolist()
+    differ = (got.argmax(-1) != ref.argmax(-1)).tolist()
+    return {"last_logit_err_over_max":
+                ((got - ref).abs().amax(-1) / scale).tolist(),
+            "tol": tol, "first_token_decided": decided,
+            "first_token_mismatched": [i for i, (d, x) in
+                                       enumerate(zip(decided, differ))
+                                       if d and x],
+            "finite": bool(torch.isfinite(got).all()
+                           and torch.isfinite(ref).all())}
+
+
 def serve_prompts(vocab: int) -> list[np.ndarray]:
     rng = np.random.default_rng(SEED)
     lo, hi = SERVE_PROMPT_LENS
@@ -1487,14 +1728,7 @@ def phase_serve(dev, model, cfg) -> dict:
     einsum_launches = flash_attention.launches
     model.cfg = cfg
     f, e = flash.pop("logits"), einsum.pop("logits")
-    scale = e.abs().amax(-1)
-    rel_err = ((f - e).abs().amax(-1) / scale).tolist()
-    top2 = e.topk(2, dim=-1).values
-    decided = ((top2[:, 0] - top2[:, 1]) > SERVE_TOL * scale).tolist()
-    first_f = [o[0] for o in flash["outputs"]]
-    first_e = [o[0] for o in einsum["outputs"]]
-    mismatched = [i for i in range(len(prompts))
-                  if decided[i] and first_f[i] != first_e[i]]
+    routes = logit_agreement(f, e, SERVE_TOL)
     same = sum(a == b for of, oe in zip(flash["outputs"], einsum["outputs"])
                for a, b in zip(of, oe))
     well_formed = (bool(torch.isfinite(f).all())
@@ -1504,8 +1738,9 @@ def phase_serve(dev, model, cfg) -> dict:
     batches = flash["stats"]["batches"]
     launcher = run_launcher(SERVE_ARCH)
     ok = (well_formed and launches == cfg.num_layers * batches
-          and einsum_launches == 0 and max(rel_err) <= SERVE_TOL
-          and not mismatched and launcher["ok"])
+          and einsum_launches == 0
+          and max(routes["last_logit_err_over_max"]) <= SERVE_TOL
+          and not routes["first_token_mismatched"] and launcher["ok"])
     res = {"phase": "serve", "ok": ok, "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
@@ -1517,14 +1752,145 @@ def phase_serve(dev, model, cfg) -> dict:
            "launches_per_prefill_batch": launches / batches,
            "flash": {k: v for k, v in flash.items() if k != "outputs"},
            "einsum": {k: v for k, v in einsum.items() if k != "outputs"},
-           "einsum_b3_launches": einsum_launches,
-           "last_logit_err_over_max": rel_err, "tol": SERVE_TOL,
-           "first_token_decided": decided, "first_token_mismatched": mismatched,
+           "einsum_b3_launches": einsum_launches, **routes,
            "tokens_equal_between_routes": same,
            "tokens": flash["tokens"], "launcher": launcher}
     emit(res)
     if not ok:
         raise SystemExit("serve phase failed")
+    return res
+
+
+def moe_prompts(vocab: int) -> list[np.ndarray]:
+    """The serve phase's traffic with each length rounded down to a multiple
+    of MOE_PROMPT_STEP (SERVE_REQUESTS prompts of 1024-2048 tokens)."""
+    return [p[:len(p) // MOE_PROMPT_STEP * MOE_PROMPT_STEP]
+            for p in serve_prompts(vocab)]
+
+
+def left_padded(prompts, dev) -> torch.Tensor:
+    """One batch of ``prompts``, left-padded with token 0 to the longest, as
+    ServeLoop pads them."""
+    S = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), S), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, S - len(p):] = p
+    return torch.from_numpy(ids).to(dev)
+
+
+@torch.inference_mode()
+def moe_routes(model, cfg, ids, tol: float) -> dict:
+    """The prefill of ``ids`` under ``cfg`` with B3 and on the einsum route.
+    Each MoE layer's routing (every token's top-k experts, which the K
+    argmax rounds pick whatever the capacity) is recorded on both routes;
+    a token whose experts differ is a flip, and a flip changes the
+    capacity slots of the rest of its group of ``moe_group`` tokens.  In
+    f32 each B3 launch is also held against the einsum route on the same
+    q, k, v (TOL's f32 tolerance).  Reports the last-token logits'
+    difference over their largest magnitude per row, the flips per layer,
+    the rows that no flipped group touches, and first tokens where the
+    einsum route's top-2 margin exceeds ``tol`` of that magnitude."""
+    from repro_torch.models import layers as L
+    real_moe, real_sdpa = L.moe, L._sdpa
+    picks = {True: [], False: []}
+    attention = []
+    f32 = cfg.adt == torch.float32
+
+    def moe(p, c, x, *, group_size=512):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"]["w"], dim=-1)
+        picks[route].append(probs.topk(c.top_k, dim=-1).indices.sort(-1)[0])
+        return real_moe(p, c, x, group_size=group_size)
+
+    def sdpa(q, k, v, mask, *, use_kernel=False, causal=False, window=None):
+        out = real_sdpa(q, k, v, mask, use_kernel=use_kernel, causal=causal,
+                        window=window)
+        if f32 and use_kernel and q.shape[1] > 1:
+            ref = real_sdpa(q, k, v, mask, causal=causal, window=window)
+            attention.append(errors(out, ref, "flash_attention.float32"))
+        return out
+
+    logits = {}
+    L.moe, L._sdpa = moe, sdpa
+    try:
+        for route in (True, False):
+            model.cfg = dataclasses.replace(cfg, flash_attention=route)
+            logits[route] = model.prefill(
+                ids, max_len=ids.shape[1] + 1)[0].float()
+    finally:
+        L.moe, L._sdpa = real_moe, real_sdpa
+        model.cfg = cfg
+    B, S = ids.shape
+    flipped = [(a != b).any(-1) for a, b in zip(picks[True], picks[False])]
+    Gs = min(cfg.moe_group, B * S)
+    groups = torch.stack(flipped).any(0).reshape(-1, Gs).any(-1)
+    token_groups = torch.arange(B * S, device=ids.device) // Gs
+    clean = [not bool(groups[token_groups[r * S:(r + 1) * S]].any())
+             for r in range(B)]
+    res = {"dtype": cfg.dtype,
+           **logit_agreement(logits[True], logits[False], tol),
+           "flips_per_layer": [int(x.sum()) for x in flipped],
+           "rows_untouched_by_flips": clean}
+    if f32:
+        res["attention_layers_checked"] = len(attention)
+        res["attention_max_abs_err"] = max(a["max_abs_err"] for a in attention)
+        res["attention_ok"] = (len(attention) == cfg.num_layers
+                               and all(a["ok"] for a in attention))
+    return res
+
+
+def phase_moe_serve(dev) -> dict:
+    """granite-moe-3b-a800m at full width through ServeLoop: f32 weights,
+    bf16 activations, B3 in every prefill layer, after a warm-up batch.
+    Gated on one prefill batch in f32 activations against the einsum
+    route; the same comparison in bf16 is printed.  Then the launcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(MOE_SERVE_ARCH), flash_attention=True)
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    prompts = moe_prompts(cfg.vocab_size)
+    warmup_s = warm_up(cfg, model, prompts, dev)
+    reset_launches()
+    run = serve_once(cfg, model, prompts, dev)
+    launches = flash_attention.launches
+    logits = run.pop("logits")
+    batches = run["stats"]["batches"]
+    ids = left_padded(prompts[:SERVE_MAX_BATCH], dev)
+    f32 = moe_routes(model, dataclasses.replace(cfg, dtype="float32"), ids,
+                     MOE_F32_TOL)
+    f32["ok"] = (f32["finite"] and f32["attention_ok"]
+                 and all(err <= MOE_F32_TOL for err, clean in zip(
+                     f32["last_logit_err_over_max"],
+                     f32["rows_untouched_by_flips"]) if clean))
+    bf16 = moe_routes(model, cfg, ids, SERVE_TOL)
+    bf16["gated"] = False
+    well_formed = (bool(torch.isfinite(logits).all())
+                   and all(len(o) == SERVE_MAX_NEW
+                           and all(0 <= x < cfg.vocab_size for x in o)
+                           for o in run["outputs"]))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = run_launcher(MOE_SERVE_ARCH)
+    ok = (well_formed and launches == cfg.num_layers * batches
+          and f32["ok"] and launcher["ok"])
+    res = {"phase": "moe-serve", "ok": ok, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "moe_group": cfg.moe_group,
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+           "max_batch": SERVE_MAX_BATCH, "max_new": SERVE_MAX_NEW,
+           "warmup_s": warmup_s, "launches": launches,
+           "launches_per_prefill_batch": launches / batches,
+           **{k: v for k, v in run.items() if k != "outputs"},
+           "routes_f32": f32, "routes_bf16_not_gated": bf16,
+           "launcher": launcher}
+    emit(res)
+    if not ok:
+        raise SystemExit("moe-serve phase failed")
     return res
 
 
@@ -1535,27 +1901,14 @@ def decode_against_prefill(model, prompts, dev) -> dict:
     last against the prefill of all S.  Crosses B4's y and final state
     (which prime the cache) with the recurrent decode, which does not use
     B4."""
-    S = max(len(p) for p in prompts)
-    ids = np.zeros((len(prompts), S), np.int64)
-    for i, p in enumerate(prompts):
-        ids[i, S - len(p):] = p
-    ids = torch.from_numpy(ids).to(dev)
+    ids = left_padded(prompts, dev)
     full, _ = model.prefill(ids, max_len=SERVE_MAX_LEN)
     _, cache = model.prefill(ids[:, :-1], max_len=SERVE_MAX_LEN)
     step, _ = model.decode_step(cache, ids[:, -1:])
-    full, step = full.float().cpu(), step.float().cpu()
-    scale = full.abs().amax(-1)
-    rel_err = ((step - full).abs().amax(-1) / scale).tolist()
-    top2 = full.topk(2, dim=-1).values
-    decided = ((top2[:, 0] - top2[:, 1]) > SSM_TOL * scale).tolist()
-    mismatched = [i for i in range(len(prompts))
-                  if decided[i] and int(step[i].argmax()) != int(full[i].argmax())]
-    finite = bool(torch.isfinite(full).all() and torch.isfinite(step).all())
-    ok = finite and max(rel_err) <= SSM_TOL and not mismatched
-    return {"ok": ok, "batch": list(ids.shape), "finite": finite,
-            "last_logit_err_over_max": rel_err, "tol": SSM_TOL,
-            "first_token_decided": decided,
-            "first_token_mismatched": mismatched}
+    res = logit_agreement(step, full, SSM_TOL)
+    res["ok"] = (res["finite"] and max(res["last_logit_err_over_max"])
+                 <= SSM_TOL and not res["first_token_mismatched"])
+    return {"batch": list(ids.shape), **res}
 
 
 def phase_ssm_serve(dev, model, cfg) -> dict:
@@ -1592,6 +1945,161 @@ def phase_ssm_serve(dev, model, cfg) -> dict:
     emit(res)
     if not ok:
         raise SystemExit("ssm-serve phase failed")
+    return res
+
+
+def timed_sync(fn, *args):
+    """``fn(*args)`` and its seconds, from a synchronize to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_audio(dev) -> dict:
+    """whisper-tiny at full width (1500 frames), f32 activations: encode,
+    the audio prefill step, and AUDIO_DECODE_STEPS decode steps from an
+    empty cache against the teacher-forced decoder on the same tokens; then
+    AUDIO_TRAIN_STEPS TrainLoop steps in bf16 activations.  Every attention
+    takes the einsum route: no kernel runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.runtime import TrainLoop
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), dtype="float32")
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal(
+        (AUDIO_BATCH, cfg.enc_frames, cfg.d_model), dtype=np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_SEQ))).to(dev)
+    reset_launches()
+    with torch.inference_mode():
+        prefill = make_prefill_step(model, cfg, AUDIO_SEQ)
+        prefill({"frames": frames, "tokens": toks})        # warm-up
+        enc, encode_s = timed_sync(model.encode, frames)
+        last, prefill_s = timed_sync(prefill, {"frames": frames,
+                                               "tokens": toks})
+        n = AUDIO_DECODE_STEPS
+        teacher = model.decode_train(enc, toks[:, :n])
+        decode = make_decode_step(model, cfg)
+        cache = model.init_cache(AUDIO_BATCH, n, dev)
+        errs, step_s = [], []
+        for t in range(n):
+            (logits, cache), dt = timed_sync(decode, cache, toks[:, t:t + 1],
+                                             enc)
+            errs.append(float((logits - teacher[:, t]).abs().max()))
+            step_s.append(dt)
+    finite = bool(torch.isfinite(last).all() and torch.isfinite(teacher).all())
+    del model, enc, cache
+    train_cfg = get_config(AUDIO_ARCH)
+    loop = TrainLoop(train_cfg, global_batch=AUDIO_BATCH, seq_len=AUDIO_SEQ,
+                     seed=SEED, device=dev)
+    state = loop.init_state()
+    _, state, warm = loop.run(1, start_step=0, state=state)
+    t0 = time.perf_counter()
+    _, state, m = loop.run(AUDIO_TRAIN_STEPS, start_step=1, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    losses = warm.losses + m.losses
+    del loop, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (finite and max(errs) <= AUDIO_TOL
+          and all(math.isfinite(x) for x in losses)
+          and launches == {"flash_attention": 0, "ssd_scan": 0})
+    res = {"phase": "audio", "ok": ok, "arch": cfg.name,
+           "layers": [cfg.enc_layers, cfg.num_layers], "d_model": cfg.d_model,
+           "frames": cfg.enc_frames, "vocab": cfg.vocab_size,
+           "batch": [AUDIO_BATCH, AUDIO_SEQ], "dtype": cfg.dtype,
+           "encode_ms": encode_s * 1e3, "prefill_step_ms": prefill_s * 1e3,
+           "decode_steps": n, "decode_ms_mean": sum(step_s) / n * 1e3,
+           "decode_max_abs_err": max(errs), "tol": AUDIO_TOL,
+           "train": {"dtype": train_cfg.dtype, "steps": AUDIO_TRAIN_STEPS,
+                     "losses": losses, "wall_s": wall,
+                     "ms_per_step": wall / AUDIO_TRAIN_STEPS * 1e3,
+                     "tokens_per_s":
+                         AUDIO_TRAIN_STEPS * AUDIO_BATCH * AUDIO_SEQ / wall},
+           "launches": launches}
+    emit(res)
+    if not ok:
+        raise SystemExit("audio phase failed")
+    return res
+
+
+def phase_vlm(dev) -> dict:
+    """internvl2-26b at full width with bf16 weights: VLM_REQUESTS requests
+    of an image and VLM_TEXT text tokens through the vlm prefill step (B3
+    in every layer) and VLM_DECODE_STEPS decode steps, after a short
+    warm-up; held against the einsum route by the serve rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import D_VIS
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(VLM_ARCH), param_dtype="bfloat16",
+                              flash_attention=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    B = VLM_REQUESTS
+    vis = torch.from_numpy(rng.standard_normal(
+        (B, cfg.vis_tokens, D_VIS), dtype=np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (B, VLM_TEXT))).to(dev)
+    max_len = cfg.vis_tokens + VLM_TEXT + VLM_DECODE_STEPS
+    prefill = make_prefill_step(model, cfg, max_len)
+    decode = make_decode_step(model, cfg)
+    with torch.inference_mode():
+        prefill({"vis": vis, "tokens": toks[:, :64]})       # warm-up
+        reset_launches()
+        (logits, cache), prefill_s = timed_sync(prefill, {"vis": vis,
+                                                          "tokens": toks})
+        launches = flash_attention.launches
+        first = logits
+        tok, out, step_s = logits.argmax(-1), [], []
+        for _ in range(VLM_DECODE_STEPS):
+            out.append(tok.tolist())
+            (logits, cache), dt = timed_sync(decode, cache, tok[:, None])
+            step_s.append(dt)
+            tok = logits.argmax(-1)
+        finite = bool(torch.isfinite(logits).all())
+        del cache
+        model.lm.cfg = dataclasses.replace(cfg, flash_attention=False)
+        einsum, _ = prefill({"vis": vis, "tokens": toks})
+        model.lm.cfg = cfg
+    peak = torch.cuda.max_memory_allocated(dev)
+    routes = logit_agreement(first, einsum, SERVE_TOL)
+    params = sum(p.numel() for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (finite and routes["finite"] and launches == cfg.num_layers
+          and max(routes["last_logit_err_over_max"]) <= SERVE_TOL
+          and not routes["first_token_mismatched"])
+    res = {"phase": "vlm", "ok": ok, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "params": params, "requests": B,
+           "tokens": [cfg.vis_tokens, VLM_TEXT],
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": B * (cfg.vis_tokens + VLM_TEXT) / prefill_s,
+           "decode_steps": VLM_DECODE_STEPS,
+           "decode_ms_mean": sum(step_s) / len(step_s) * 1e3,
+           "decode_ms_median": sorted(step_s)[len(step_s) // 2] * 1e3,
+           "launches": launches, "launches_expected": cfg.num_layers,
+           **routes, "outputs": out,
+           "max_memory_allocated": peak}
+    emit(res)
+    if not ok:
+        raise SystemExit("vlm phase failed")
     return res
 
 
@@ -1646,9 +2154,14 @@ def phase_timing(dev) -> list[dict]:
                 "bytes": nbytes, **e})
     flash = flash_timing(dev, g)
     flash["train"] = flash_train_timing(dev, g)
-    flash["ok"] = flash["ok"] and flash["train"]["ok"]
+    flash["granite_serve"] = flash_granite_timing(dev, g)
+    flash["ok"] = (flash["ok"] and flash["train"]["ok"]
+                   and flash["granite_serve"]["ok"])
     out.append(flash)
-    out.append(ssd_timing(dev, g))
+    ssd = ssd_timing(dev, g)
+    ssd["train"] = ssd_train_timing(dev, g)
+    ssd["ok"] = ssd["ok"] and ssd["train"]["ok"]
+    out.append(ssd)
     ok = all(t["ok"] for t in out)
     emit({"phase": "timing", "ok": ok, "kernels": out})
     if not ok:
@@ -1729,16 +2242,83 @@ def ssd_timing(dev, g: torch.Generator) -> dict:
             "bytes": nbytes, **e}
 
 
+def flash_granite_timing(dev, g: torch.Generator) -> dict:
+    """B3 at one prefill layer of a granite-moe-3b-a800m serve batch (B 4,
+    S = T = 2048, K 8, G 3, hd 64, bf16, causal): forward beside its plain
+    version, ``scaled_dot_product_attention`` and its bound; the plain
+    blockwise backward from the forward's lse."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward,
+                                                     flash_attention_plain)
+    B, S, K, G, hd = SERVE_MAX_BATCH, SERVE_PROMPT_LENS[1], 8, 3, 64
+    q = torch.randn(B, S, K, G, hd, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(B, S, K, hd, generator=g).to(dev, torch.bfloat16)
+    dout = torch.randn(B, S, K, G, hd, generator=g).to(dev, torch.bfloat16)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=3)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, hd)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), reps=10, warmup=2)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    exp, exp_lse = flash_attention_plain(q, k, v, return_lse=True)
+    checks = {"out": errors(out, exp, "flash_attention.bfloat16"),
+              "lse": errors(lse, exp_lse, "flash_attention.lse")}
+    backward_ms = cuda_ms(lambda: flash_attention_backward(
+        q, k, v, out, lse, dout), reps=3)
+    flops = 4 * B * K * G * hd * S * (S + 1) // 2      # live causal pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    return {"shape": [B, S, S, K, G, hd], "dtype": "bfloat16",
+            "causal": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": bound_ms / ms, "backward_plain_ms": backward_ms,
+            **checks, "ok": all(c["ok"] for c in checks.values())}
+
+
+def ssd_train_timing(dev, g: torch.Generator) -> dict:
+    """B4 at one layer of the ssm-train step (b 2, s 2048, mamba2-370m's
+    heads, bf16): the forward beside its plain version, and the Function's
+    backward (autograd of the plain version recomputed from the inputs)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    _, s, h, p, n, chunk = SSD_MAIN
+    x, a, B, C = ssd_inputs(TRAIN_BATCH, s, h, p, n, torch.bfloat16, dev, g)
+    ms = cuda_ms(lambda: ssd_scan(x, a, B, C, chunk), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: ssd_scan_plain(x, a, B, C, chunk), reps=3)
+    y, _ = ssd_scan(x, a, B, C, chunk)
+    e = errors(y, ssd_scan_plain(x, a, B, C, chunk)[0], "ssd_scan.bfloat16",
+               ssd_error_scale(x, a, B, C, chunk)[0])
+    ins = [t.detach().clone().requires_grad_() for t in (x, a, B, C)]
+    yg, _ = ssd_scan(*ins, chunk)
+    dy = torch.randn(yg.shape, generator=g).to(dev, yg.dtype)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(
+        yg, ins, dy, retain_graph=True), reps=3)
+    return {"shape": [TRAIN_BATCH, s, h, p, n, chunk], "dtype": "bfloat16",
+            "ms": ms, "plain_ms": plain_ms, "backward_plain_ms": backward_ms,
+            **e}
+
+
 def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
     """Run ``run()`` under torch.profiler; the union of the card's activity
     intervals (kernels and copies, over all streams) against wall time.
     The gates of a traced runtime's lanes (``repro_card_gate_kernel``) are
-    instrumentation, not work, and are left out.  With ``window``, also the
-    union within the host range that ``run`` marks with
-    ``torch.profiler.record_function(window)``, and with ``markers`` (the
-    number of one-kernel markers that ``run`` launches first, one stream
-    after another) the streams they ran on and each stream's union within
-    the window's intervals of each stream."""
+    instrumentation, not work, and are left out; the streams they ran on
+    are the lanes' streams that had work (``gate_streams``).  With
+    ``window``, also the union within the host range that ``run`` marks
+    with ``torch.profiler.record_function(window)``, and with ``markers``
+    (the number of ``torch.cuda._sleep`` markers, kernels named
+    ``spin_kernel``, that ``run`` launches first, one stream after another)
+    the streams of the markers the profiler kept, in order, and each
+    stream's intervals within the window.  The profiler can drop the first
+    records of a profiling run (seen for the markers of a 1 x 1 WaveSim run
+    after the seeding copies), so the markers are found by name, not by
+    position."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1753,6 +2333,10 @@ def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
                     key=lambda e: e.time_range.start)
     spans = [(e.time_range.start, e.time_range.end) for e in device]
     busy_us = union_s(spans)             # in us
+    gate_streams = sorted({getattr(e, "device_resource_id", None)
+                           for e in events
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and "card_gate" in e.name})
     by_name: dict[str, float] = {}
     for ev in prof.key_averages():       # the card's kernels and copies only
         if (ev.device_type == torch.autograd.DeviceType.CUDA
@@ -1765,7 +2349,8 @@ def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-           "device_events": len(spans), "device_ms_by_name": top}
+           "device_events": len(spans), "device_ms_by_name": top,
+           "gate_streams": gate_streams}
     if window is not None:
         w = next(e.time_range for e in events if e.name == window)
         out["window_s"] = (w.end - w.start) / 1e6
@@ -1774,9 +2359,12 @@ def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
             if b > w.start and a < w.end) / 1e6
         if markers:
             out["marker_streams"] = [getattr(e, "device_resource_id", None)
-                                     for e in device[:markers]]
+                                     for e in device
+                                     if "spin_kernel" in e.name][:markers]
             by_stream: dict = {}
-            for e in device[markers:]:
+            for e in device:
+                if "spin_kernel" in e.name:
+                    continue
                 a, b = e.time_range.start, e.time_range.end
                 if b > w.start and a < w.end:
                     by_stream.setdefault(
@@ -1940,11 +2528,12 @@ def trace_run(app: str, nodes: int, devices: int, *, trace: bool,
 
         def run():
             if profile:
-                # one small kernel on each lane's stream, one after another,
-                # so that the profiler's stream ids can be told apart
+                # one marker kernel on each lane's stream, one after
+                # another, so that the profiler's stream ids can be told
+                # apart
                 for _, stream in lanes:
                     with torch.cuda.stream(stream):
-                        torch.ones(1, device=stream.device)
+                        torch.cuda._sleep(1)
                     stream.synchronize()
             marks["t0"] = time.perf_counter()
             sim.advance(1)
@@ -1972,15 +2561,19 @@ def trace_run(app: str, nodes: int, devices: int, *, trace: bool,
             # each device lane's busy union over its streams in the window
             ids = activity["marker_streams"]
             spans = activity["window_spans_by_stream"]
+            told_apart = (len(ids) == len(lanes) and None not in ids
+                          and len(set(ids)) == len(ids))
             per_lane: dict[str, list] = {}
-            for (lane, _), sid in zip(lanes, ids):
+            for (lane, _), sid in zip(lanes, ids if told_apart else []):
                 per_lane.setdefault(lane, []).extend(spans.get(sid, []))
-            out["profiler"]["streams_told_apart"] = (
-                None not in ids and len(set(ids)) == len(ids))
+            out["profiler"]["streams_told_apart"] = told_apart
+            out["profiler"]["gate_streams"] = activity["gate_streams"]
             out["profiler"]["window_busy_s_per_device"] = {
                 lane: union_s(v) / 1e6 for lane, v in sorted(per_lane.items())}
+            # the lanes' streams with work are those their gates ran on
             out["profiler"]["window_busy_s_lane_streams"] = union_s(
-                iv for v in per_lane.values() for iv in v) / 1e6
+                iv for sid in activity["gate_streams"]
+                for iv in spans.get(sid, [])) / 1e6
         if trace:
             e = rt.tracer.epoch
             out["records"] = list(rt.tracer.records)
@@ -2017,7 +2610,7 @@ def busy_report(run: dict) -> dict:
     busy, prof_busy = steady(card), prof["window_busy_s_lane_streams"]
     per_device = {lane: steady([r for r in card if r.lane == lane])
                   for lane in sorted({r.lane for r in card})}
-    ratio = busy / prof_busy
+    ratio = busy / prof_busy if prof_busy > 0 else math.inf
     return {"records_busy_s_whole_run": union_s((r.t_start, r.t_done)
                                                 for r in card),
             "steady_window_s": s1 - s0, "steady_busy_s": busy,
@@ -2034,8 +2627,7 @@ def busy_report(run: dict) -> dict:
             "records_over_profiler_per_device": {
                 lane: per_device.get(lane, 0.0) / max(v, 1e-12)
                 for lane, v in prof["window_busy_s_per_device"].items()},
-            "ok": (prof["streams_told_apart"]
-                   and abs(ratio - 1) <= TRACE_BUSY_RTOL)}
+            "ok": abs(ratio - 1) <= TRACE_BUSY_RTOL}
 
 
 def phase_trace(dev) -> dict:
@@ -2216,17 +2808,29 @@ def held_out_loss(model, loop, dev) -> float:
         return model.loss({"tokens": toks, "labels": toks}).item()
 
 
-def phase_train(dev) -> dict:
-    """qwen2-1.5b at full width through TrainLoop with B3 in every layer's
-    forward: the first step's loss and grad norm against the einsum route,
-    a warm-up step, then the main path of TRAIN_STEPS steps, then more
-    steps up to TRAIN_FALL_STEPS; the loss of a batch never trained on
-    must fall."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention
+def flash_route(model, cfg, kernel: bool):
+    """Run ``model`` with B3 (``kernel``) or on the einsum route."""
+    model.cfg = dataclasses.replace(cfg, flash_attention=kernel)
+
+
+def ssd_route(model, cfg, kernel: bool):
+    """Run the Mamba2 layers' scan through B4's wrapper (``kernel``) or
+    through its plain version on the card, for the route comparison."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.models import mamba2
+    mamba2.ssd_scan = ssd_scan if kernel else ssd_scan_plain
+
+
+def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
+    """``cfg`` at full width through TrainLoop (f32 weights and moments,
+    ``cfg.dtype`` activations, TRAIN_BATCH x TRAIN_SEQ tokens a step): the
+    first step's loss and grad norm on ``kernel``'s route against the
+    reference route (``set_route(model, cfg, False)``), a warm-up step,
+    then the main path of TRAIN_STEPS steps with ``kernel`` launched once
+    per layer a step; with ``held_out``, more steps up to TRAIN_FALL_STEPS
+    and the loss of a batch never trained on must fall."""
     from repro_torch.models import build_model
     from repro_torch.runtime import TrainLoop
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash_attention=True)
     torch.cuda.reset_peak_memory_stats(dev)
     model = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(SEED)).requires_grad_(True)
@@ -2236,21 +2840,21 @@ def phase_train(dev) -> dict:
     toks = torch.from_numpy(loop.data.local_batch(0)["tokens"]).to(dev)
     batch = {"tokens": toks, "labels": toks}
     routes = {}
-    for flash in (False, True):
-        model.cfg = dataclasses.replace(cfg, flash_attention=flash)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        routes["flash" if flash else "einsum"] = (
-            *loss_and_grad_norm(model, batch), time.perf_counter() - t0)
-    model.cfg = cfg
-    held_before = held_out_loss(model, loop, dev)
-    (el, eg, _), (fl, fg, _) = routes["einsum"], routes["flash"]
-    route_check = {"einsum": {"loss": el, "grad_norm": eg,
-                              "seconds": routes["einsum"][2]},
-                   "flash": {"loss": fl, "grad_norm": fg,
-                             "seconds": routes["flash"][2]},
-                   "loss_rel_diff": abs(fl - el) / abs(el),
-                   "grad_norm_rel_diff": abs(fg - eg) / abs(eg)}
+    try:
+        for name in ("reference", "kernel"):
+            set_route(model, cfg, name == "kernel")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name] = (*loss_and_grad_norm(model, batch),
+                            time.perf_counter() - t0)
+    finally:
+        set_route(model, cfg, True)
+    held_before = held_out_loss(model, loop, dev) if held_out else None
+    (rl, rg, rs), (kl, kg, ks) = routes["reference"], routes["kernel"]
+    route_check = {"reference": {"loss": rl, "grad_norm": rg, "seconds": rs},
+                   "kernel": {"loss": kl, "grad_norm": kg, "seconds": ks},
+                   "loss_rel_diff": abs(kl - rl) / abs(rl),
+                   "grad_norm_rel_diff": abs(kg - rg) / abs(rg)}
     route_check["ok"] = (route_check["loss_rel_diff"] <= TRAIN_LOSS_RTOL
                          and route_check["grad_norm_rel_diff"]
                          <= TRAIN_GRAD_NORM_RTOL)
@@ -2264,46 +2868,93 @@ def phase_train(dev) -> dict:
     _, state, m = loop.run(TRAIN_STEPS, start_step=1, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated(dev)
     losses = warm.losses + m.losses
-    # the first Adam steps from random weights raise the loss of batches
-    # they have not seen (PERF.md §6): the fall is read on a held-out
-    # batch after TRAIN_FALL_STEPS steps
-    steps = 1 + TRAIN_STEPS
-    _, state, more = loop.run(TRAIN_FALL_STEPS - steps, start_step=steps,
-                              state=state)
-    held_after = held_out_loss(model, loop, dev)
-    finite = all(math.isfinite(x) for x in
-                 losses + more.losses + [held_before, held_after])
-    ok = (route_check["ok"] and finite and held_after < held_before
-          and launches == cfg.num_layers * TRAIN_STEPS)
-    res = {"phase": "train", "ok": ok, "arch": cfg.name, "full": True,
+    res = {"arch": cfg.name, "full": True, "family": cfg.family,
            "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
            "params": sum(p.numel() for p in model.parameters()),
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": TRAIN_STEPS,
            "routes_first_step": route_check, "losses": losses,
-           "losses_after_main_path": more.losses,
-           "held_out_batch": TRAIN_HELD_OUT,
-           "held_out_loss_before": held_before,
-           "held_out_loss_after": held_after,
-           "steps_before_held_out_check": TRAIN_FALL_STEPS,
            "warmup_step_s": warmup_s, "wall_s": wall,
            "ms_per_step": wall / TRAIN_STEPS * 1e3,
            "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
            "grad_norms": warm.grad_norms + m.grad_norms,
-           "overlap": loop.overlap,
+           "overlap": loop.overlap, "kernel": kernel.__name__,
            "launches": launches,
            "launches_expected": cfg.num_layers * TRAIN_STEPS,
            "max_memory_allocated": peak}
+    ok = (route_check["ok"] and launches == res["launches_expected"]
+          and all(math.isfinite(x) for x in losses))
+    if held_out:
+        # the first Adam steps from random weights raise the loss of batches
+        # they have not seen (PERF.md §6): the fall is read on a held-out
+        # batch after TRAIN_FALL_STEPS steps
+        steps = 1 + TRAIN_STEPS
+        _, state, more = loop.run(TRAIN_FALL_STEPS - steps, start_step=steps,
+                                  state=state)
+        held_after = held_out_loss(model, loop, dev)
+        res.update(losses_after_main_path=more.losses,
+                   held_out_batch=TRAIN_HELD_OUT,
+                   held_out_loss_before=held_before,
+                   held_out_loss_after=held_after,
+                   steps_before_held_out_check=TRAIN_FALL_STEPS)
+        ok = (ok and all(math.isfinite(x) for x in more.losses)
+              and math.isfinite(held_after) and held_after < held_before)
+    res["ok"] = ok
     del loop, state, model, batch, toks
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(dev) -> dict:
+    """qwen2-1.5b at full width through TrainLoop with B3 in every layer's
+    forward (``train_main_path``, the einsum route as reference, the
+    held-out check); then the launcher once."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash_attention=True)
+    res = {"phase": "train", **train_main_path(dev, cfg, flash_attention,
+                                               flash_route, held_out=True)}
     res["launcher"] = run_train_launcher()
     res["ok"] = res["ok"] and res["launcher"]["ok"]
     emit(res)
     if not res["ok"]:
         raise SystemExit("training at full width failed")
+    return res
+
+
+def phase_moe_train(dev) -> dict:
+    """granite-moe-1b-a400m at full width through TrainLoop under the train
+    phase's rules: B3 in every layer's forward, the einsum route as
+    reference, the held-out check."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              flash_attention=True)
+    res = {"phase": "moe-train", "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "moe_group": cfg.moe_group,
+           **train_main_path(dev, cfg, flash_attention, flash_route,
+                             held_out=True)}
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("MoE training at full width failed")
+    return res
+
+
+def phase_ssm_train(dev) -> dict:
+    """mamba2-370m at full width through TrainLoop: B4 under autograd in
+    every layer (its forward, the plain backward), held against the plain
+    scan on the card for the first step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    cfg = get_config(SSM_ARCH)
+    res = {"phase": "ssm-train",
+           **train_main_path(dev, cfg, ssd_scan, ssd_route, held_out=False)}
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("SSM training at full width failed")
     return res
 
 
@@ -2371,8 +3022,16 @@ def main() -> int:
     phase_faults(dev)
     phase_scheduler_launcher()
     phase_serve_reference(dev)
+    phase_zoo_reference(dev)
     phase_train_reference(dev)
     train = phase_train(dev)
+    moe_train = phase_moe_train(dev)
+    ssm_train = phase_ssm_train(dev)
+    phase_audio(dev)
+    # the largest models first, each freed after its phase: granite-moe-3b
+    # (13.2 GB of f32 weights), internvl2-26b (40 GB of bf16 weights)
+    moe_serve = phase_moe_serve(dev)
+    vlm = phase_vlm(dev)
     # full width: f32 weights drawn on the card from SEED, bf16 activations
     serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),
                                     flash_attention=True)
@@ -2388,8 +3047,9 @@ def main() -> int:
                         ("ssm_serve", ssm_cfg, ssm_model)])
     launches = {"nbody_forces_rows": nbody["launches"],
                 "wave_step_rows": wave["launches"],
-                "flash_attention": serve["launches"] + train["launches"],
-                "ssd_scan": ssm["launches"]}
+                "flash_attention": sum(r["launches"] for r in (
+                    serve, train, moe_serve, moe_train, vlm)),
+                "ssd_scan": ssm["launches"] + ssm_train["launches"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",

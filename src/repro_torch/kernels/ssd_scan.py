@@ -16,6 +16,8 @@ with ``x = 0``, ``a = 0`` steps, which leave the state as it is.
 On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel in
 ``csrc/ssd_scan.cu``; on a CPU tensor it runs the plain PyTorch version,
 :func:`ssd_scan_plain`, the twin of ``repro.models.mamba2.ssd_chunked``.
+Under autograd the forward is the same, and the backward is autograd of the
+plain version recomputed from the inputs (:class:`_SSDScan`).
 :func:`ssd_chunk_ref` is the twin of ``repro.kernels.ref.ssd_chunk_ref``.
 """
 
@@ -124,30 +126,10 @@ def ssd_chunk_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     return y, state
 
 
-def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, chunk: int = 64):
-    """SSD over whole sequences: ``(y [b,s,h,p], state [b,h,p,n] f32)``.
-
-    A CUDA tensor goes through the kernel on the current stream: ``x``, ``B``
-    and ``C`` float32 or bfloat16 (one dtype), ``a`` float32, all contiguous,
-    ``chunk`` up to 64 and ``n`` up to 128; any ``s``.  The kernel keeps the
-    products and the carried state in f32 and rounds ``h_prev`` to ``x``'s
-    dtype before the ``C h_prev`` term, as ``ssd_chunked`` (the function the
-    JAX model runs) does; the TPU kernel keeps it in f32.  In bfloat16 the
-    products run on the tensor cores, each f32 operand split into bf16
-    terms (two for the scores, three for the state update), so the state
-    keeps the f32 tolerance.  Against
-    :func:`ssd_scan_plain` on the same inputs: 2e-4 in f32 (sums in another
-    order, ``tests/test_kernels.py``'s tolerance); in bf16, one bf16 step of
-    ``y`` (both round the same f32 value of ``y`` once, and the f32 values
-    differ by sums taken in another order, which can cross a rounding
-    boundary; ``h_prev`` rounds alike unless the same happens to it).
-
-    A CPU tensor goes through the plain version.  Each kernel launch adds
-    one to ``ssd_scan.launches``.
-    """
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, a, B, C, chunk)
+def _launch(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, chunk: int):
+    """Kernel B4 on the current stream: ``(y, state)``.  Adds one to
+    ``ssd_scan.launches``."""
     _check_args(x, a, B, C, chunk)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
@@ -183,6 +165,73 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     with _count_lock:
         ssd_scan.launches += 1
     return y, state
+
+
+class _SSDScan(torch.autograd.Function):
+    """B4 (its plain version on the CPU) forward; the backward is autograd
+    of :func:`ssd_scan_plain` recomputed from the saved inputs (the JAX
+    model's gradient is ``jax.grad`` through the jnp ``ssd_chunked``; no
+    Pallas backward exists).  An output the loss does not use (the final
+    state, in training) brings no gradient and is left out of it."""
+
+    @staticmethod
+    def forward(ctx, x, a, B, C, chunk):
+        if x.device.type == "cpu":
+            y, state = ssd_scan_plain(x, a, B, C, chunk)
+        else:
+            y, state = _launch(x, a, B, C, chunk)
+        ctx.save_for_backward(x, a, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = ssd_scan_plain(*inputs, ctx.chunk)
+        outs = [(o, g) for o, g in ((y, dy), (state, dstate))
+                if g is not None]
+        if not outs:
+            return None, None, None, None, None
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in outs],
+                                         wanted, [g for _, g in outs],
+                                         allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, chunk: int = 64):
+    """SSD over whole sequences: ``(y [b,s,h,p], state [b,h,p,n] f32)``.
+
+    A CUDA tensor goes through the kernel on the current stream: ``x``, ``B``
+    and ``C`` float32 or bfloat16 (one dtype), ``a`` float32, all contiguous,
+    ``chunk`` up to 64 and ``n`` up to 128; any ``s``.  The kernel keeps the
+    products and the carried state in f32 and rounds ``h_prev`` to ``x``'s
+    dtype before the ``C h_prev`` term, as ``ssd_chunked`` (the function the
+    JAX model runs) does; the TPU kernel keeps it in f32.  In bfloat16 the
+    products run on the tensor cores, each f32 operand split into bf16
+    terms (two for the scores, three for the state update), so the state
+    keeps the f32 tolerance.  Against
+    :func:`ssd_scan_plain` on the same inputs: 2e-4 in f32 (sums in another
+    order, ``tests/test_kernels.py``'s tolerance); in bf16, one bf16 step of
+    ``y`` (both round the same f32 value of ``y`` once, and the f32 values
+    differ by sums taken in another order, which can cross a rounding
+    boundary; ``h_prev`` rounds alike unless the same happens to it).
+
+    A CPU tensor goes through the plain version.  Where autograd records
+    and an input requires grad, the call runs under :class:`_SSDScan`,
+    whose backward is plain PyTorch.  Each kernel launch adds one to
+    ``ssd_scan.launches``.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, B, C)):
+        return _SSDScan.apply(x, a, B, C, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, a, B, C, chunk)
+    return _launch(x, a, B, C, chunk)
 
 
 ssd_scan.launches = 0

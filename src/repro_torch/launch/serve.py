@@ -7,7 +7,9 @@ Two engines share this entry point, both on the CUDA card unless
 packed into slot batches, prefilled once, decoded in lock-step; finished
 slots refill from the queue.  Weights are drawn from a seed.  ``--arch``
 takes the dense configs (qwen2-1.5b, h2o-danube-1.8b, starcoder2-3b,
-minitron-4b), mamba2-370m and zamba2-7b.
+minitron-4b), the MoE configs (granite-moe-1b-a400m, granite-moe-3b-a800m),
+mamba2-370m and zamba2-7b; whisper-tiny and internvl2-26b take more than
+tokens, so they are served through ``launch.steps``, not here.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --max-new 16 [--full] [--device cpu]

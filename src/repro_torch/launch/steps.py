@@ -5,7 +5,7 @@ The PyTorch counterpart of ``src/repro/launch/steps.py``.  A step takes the
 model's parameters as the dict that ``model.named_parameters()`` gives (the
 model computes with them), where the JAX step takes a pytree; the train
 step updates them and the moments in place.  Prefill and decode steps
-serve the families the port has: dense, ssm and hybrid.
+serve every family, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -31,14 +31,22 @@ def make_train_step(model, *, lr: float = 3e-4):
     return train_step
 
 
-def _check_served(cfg: ArchConfig) -> None:
-    if cfg.family in ("audio", "vlm", "moe"):
-        raise NotImplementedError(f"the {cfg.family} family is not ported "
-                                  "yet (ROADMAP A14, A16)")
-
-
 def make_prefill_step(model, cfg: ArchConfig, max_len: int):
-    _check_served(cfg)
+    """``prefill_step(batch)``: the model's prefill of ``batch["tokens"]``
+    (with ``batch["vis"]`` for the vlm family), ``(last-token logits,
+    cache)``.  The audio family's step encodes ``batch["frames"]`` and runs
+    the teacher-forced decoder, returning the last position's logits alone,
+    as the JAX package's does."""
+    if cfg.family == "audio":
+        def prefill_step(batch):
+            enc = model.encode(batch["frames"])
+            return model.decode_train(enc, batch["tokens"])[:, -1]
+        return prefill_step
+
+    if cfg.family == "vlm":
+        def prefill_step(batch):
+            return model.prefill(batch["vis"], batch["tokens"], max_len)
+        return prefill_step
 
     def prefill_step(batch):
         return model.prefill(batch["tokens"], max_len)
@@ -47,7 +55,12 @@ def make_prefill_step(model, cfg: ArchConfig, max_len: int):
 
 
 def make_decode_step(model, cfg: ArchConfig):
-    _check_served(cfg)
+    """``decode_step(cache, ids)``, or ``decode_step(cache, ids, enc_out)``
+    for the audio family (the decoder attends to the encoder's output)."""
+    if cfg.family == "audio":
+        def decode_step(cache, ids, enc_out):
+            return model.decode_step(cache, ids, enc_out)
+        return decode_step
 
     def decode_step(cache, ids):
         return model.decode_step(cache, ids)

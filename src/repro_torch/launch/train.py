@@ -10,8 +10,8 @@ variant; ``--full`` takes the published config (f32 weights, bf16
 activations); ``--flash`` sets ``flash_attention=True``, so every layer's
 attention runs kernel B3 forward and the plain blockwise backward.  The loop
 is the IDAG-orchestrated ``TrainLoop``: data prefetch, the step and async
-checkpointing are host tasks of the port's runtime.  The dense family
-trains; the others are not ported yet.
+checkpointing are host tasks of the port's runtime.  Every family trains
+(``--arch`` takes any config of ``repro_torch.configs``).
 """
 
 from __future__ import annotations

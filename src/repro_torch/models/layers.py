@@ -1,8 +1,8 @@
 """Core layers of the models: norms, RoPE, GQA attention (sliding window,
-QKV bias), MLPs, embedding and head.
+QKV bias), MLPs, MoE, embedding and head.
 
-The PyTorch counterpart of ``src/repro/models/layers.py``, for what serving
-the dense, ssm and hybrid models and training the dense ones need.  Parameters are :class:`Tree`
+The PyTorch counterpart of ``src/repro/models/layers.py``: the layers every
+family of the model zoo serves and trains with.  Parameters are :class:`Tree`
 modules with the JAX package's names and layouts (a linear weight is
 ``[d_in, d_out]``), and the functions here take such a tree and tensors, as
 the JAX functions take a pytree.  Activations run in ``cfg.dtype``; norms,
@@ -71,6 +71,17 @@ class TreeLM(nn.Module):
         self.params = Tree(params)
         self.layers = nn.ModuleList(Tree(lp) for lp in layers)
         return self
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` shifted by one, plus ``0.01 * aux`` (the MoE
+        layers' summed load-balancing loss; 0 for the other families), as
+        the JAX package's ``DecoderLM.loss``, ``Mamba2LM.loss`` and
+        ``Zamba2LM.loss``."""
+        logits, aux = self.forward(batch["tokens"])
+        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                           batch.get("mask", None))
+        return ce + 0.01 * aux
 
     def _logits(self, x):
         """Final norm, then the tied embedding or the head; f32 logits."""
@@ -235,15 +246,80 @@ def mlp(p, cfg, x):
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: not ported yet
+# Mixture of Experts (GShard-style grouped top-k dispatch with capacity)
 
 
-def init_moe(cfg, generator):
-    raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
+def init_moe(cfg, generator) -> dict:
+    d, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(F_ * 2 * cfg.num_layers)
+    return {
+        "router": init_linear(d, E, torch.float32, generator),
+        "wi": _normal((E, d, F_), cfg.pdt, s_in, generator),
+        "wg": _normal((E, d, F_), cfg.pdt, s_in, generator),
+        "wo": _normal((E, F_, d), cfg.pdt, s_out, generator),
+    }
 
 
 def moe(p, cfg, x, *, group_size: int = 512):
-    raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
+    """Top-k routed MoE with per-group expert capacity (token dropping), step
+    for step as the JAX package's ``moe``: f32 router, the Switch aux loss,
+    K rounds of argmax (the first maximal index, as ``jnp.argmax``) filling
+    ``C = ceil(K Gs / E * capacity_factor)`` slots per expert and group, the
+    renormalised ``combine`` and ``dispatch = combine > 0`` as dense
+    ``[G, Gs, E, C]`` tensors, the experts as batched einsums.  A token
+    count ``B * S`` that ``group_size`` does not divide is refused, as the
+    reference refuses it.  Returns ``(out, aux)``."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    tokens = x.reshape(-1, D)
+    N = tokens.shape[0]
+    Gs = min(group_size, N)
+    if N % Gs:
+        raise ValueError(f"token count {N} not divisible by group {Gs}")
+    G = N // Gs
+    C = max(1, int(math.ceil(K * Gs / E * cfg.capacity_factor)))
+    xg = tokens.reshape(G, Gs, D)
+
+    logits = xg.float() @ p["router"]["w"]                      # [G,Gs,E]
+    probs = torch.softmax(logits, dim=-1)
+
+    # load-balancing aux loss (Switch): E * mean(frac_tokens * frac_probs)
+    top1 = torch.argmax(probs, dim=-1)
+    frac_tokens = torch.mean(F.one_hot(top1, E).float(), dim=1)
+    frac_probs = torch.mean(probs, dim=1)
+    aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
+
+    # iterative top-k with capacity assignment
+    combine = torch.zeros((G, Gs, E, C), dtype=torch.float32, device=x.device)
+    remaining = probs
+    fill = torch.zeros((G, E), dtype=torch.int32, device=x.device)
+    for _ in range(K):
+        idx = torch.argmax(remaining, dim=-1)                   # [G,Gs]
+        gate = torch.gather(remaining, -1, idx[..., None])[..., 0]
+        onehot = F.one_hot(idx, E).float()                      # [G,Gs,E]
+        pos = torch.cumsum(onehot, dim=1) - onehot              # pos within group
+        pos = pos + fill[:, None, :]                            # offset by filled
+        in_cap = pos < C
+        slot = torch.sum(onehot * pos, dim=-1).to(torch.int32)
+        keep = torch.sum(onehot * in_cap, dim=-1) > 0
+        cslot = F.one_hot(torch.clamp(slot, 0, C - 1).long(), C).float()
+        combine = combine + (gate * keep)[..., None, None] * \
+            onehot[..., None] * cslot[:, :, None, :]
+        fill = fill + torch.sum(onehot * in_cap, dim=1).to(torch.int32)
+        remaining = remaining * (1.0 - onehot)
+
+    # renormalize kept gates over the k choices (granite-style top-k softmax)
+    denom = torch.sum(combine, dim=(2, 3), keepdim=True) + 1e-9
+    combine = combine / denom
+    dispatch = (combine > 0).to(x.dtype)                        # [G,Gs,E,C]
+
+    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)          # [E,G,C,D]
+    h = F.silu(torch.einsum("egcd,edf->egcf", xin, p["wg"].to(x.dtype)))
+    h = h * torch.einsum("egcd,edf->egcf", xin, p["wi"].to(x.dtype))
+    out_e = torch.einsum("egcf,efd->egcd", h, p["wo"].to(x.dtype))
+    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
+    return out.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Mamba2: state-space duality (SSD) blocks, arXiv:2405.21060.
 
-The PyTorch counterpart of ``src/repro/models/mamba2.py`` for serving.
-Prefill runs the chunked SSD scan through :func:`kernels.ssd_scan` (kernel
-B4 on the card, its plain version on the CPU) and keeps each layer's final
-state; decode is the O(1) recurrent update in the activation dtype, rounded
-where the JAX package rounds it.  JAX's ``scan`` over stacked layers becomes
-a loop over an ``nn.ModuleList``.
+The PyTorch counterpart of ``src/repro/models/mamba2.py`` for serving and
+training.  Prefill and the training forward run the chunked SSD scan through
+:func:`kernels.ssd_scan` (kernel B4 on the card, its plain version on the
+CPU; under autograd with the plain backward), and prefill keeps each
+layer's final state; decode is the O(1) recurrent update in the activation
+dtype, rounded where the JAX package rounds it.  JAX's ``scan`` over stacked
+layers becomes a loop over an ``nn.ModuleList``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Dense decoder-only LM with GQA, RoPE, sliding-window attention and a
-KV-cached decode (ring buffer for the sliding window).
+"""Decoder-only LM (dense and MoE) with GQA, RoPE, sliding-window attention
+and a KV-cached decode (ring buffer for the sliding window).
 
 The PyTorch counterpart of ``src/repro/models/transformer.py`` for serving
-and training.  JAX's ``scan`` over stacked layers becomes a loop over an
+and training; also the language backbone of InternVL (the vlm family).
+JAX's ``scan`` over stacked layers becomes a loop over an
 ``nn.ModuleList``; ``remat`` is not ported: the backward keeps every layer's
-activations.  The MoE family is not ported yet.
+activations.  An MoE layer routes groups of ``cfg.moe_group`` tokens in
+prefill and training, and the whole batch's B tokens in a decode step (so
+capacity drops many assignments there, by the reference's design).
 """
 
 from __future__ import annotations
@@ -16,10 +19,9 @@ from .config import ArchConfig
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
-    if cfg.family != "dense":
-        raise ValueError(f"DecoderLM serves the dense family, not {cfg.family}")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"DecoderLM serves the dense, moe and vlm families, "
+                         f"not {cfg.family}")
 
 
 class DecoderLM(L.TreeLM):
@@ -35,10 +37,14 @@ class DecoderLM(L.TreeLM):
     def init_layer(self, generator: torch.Generator) -> dict:
         cfg = self.cfg
         dev = generator.device
-        return {"ln1": L.init_norm(cfg.d_model, cfg.pdt, dev),
-                "ln2": L.init_norm(cfg.d_model, cfg.pdt, dev),
-                "attn": L.init_attention(cfg, generator),
-                "mlp": L.init_mlp(cfg, generator)}
+        p = {"ln1": L.init_norm(cfg.d_model, cfg.pdt, dev),
+             "ln2": L.init_norm(cfg.d_model, cfg.pdt, dev),
+             "attn": L.init_attention(cfg, generator)}
+        if cfg.family == "moe":
+            p["moe"] = L.init_moe(cfg, generator)
+        else:
+            p["mlp"] = L.init_mlp(cfg, generator)
+        return p
 
     def init(self, generator: torch.Generator) -> "DecoderLM":
         """Fresh weights with the JAX package's scales, drawn on the
@@ -67,7 +73,11 @@ class DecoderLM(L.TreeLM):
                                 causal=causal)
         x = x + a
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
-        return x + L.mlp(p["mlp"], cfg, h), 0.0, new_kv
+        if cfg.family == "moe":
+            y, aux = L.moe(p["moe"], cfg, h, group_size=cfg.moe_group)
+        else:
+            y, aux = L.mlp(p["mlp"], cfg, h), 0.0
+        return x + y, aux, new_kv
 
     # -- full forward (prefill) -----------------------------------------------------
     def forward(self, ids, *, return_cache: bool = False,
@@ -97,15 +107,6 @@ class DecoderLM(L.TreeLM):
         if return_cache:
             return logits, aux, kvs
         return logits, aux
-
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Next-token cross entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` shifted by one, plus ``0.01 * aux`` (0 for the
-        dense family), as the JAX package's ``DecoderLM.loss``."""
-        logits, aux = self.forward(batch["tokens"])
-        ce = L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                             batch.get("mask", None))
-        return ce + 0.01 * aux
 
     # -- cached decode --------------------------------------------------------------
     def cache_len(self, max_len: int) -> int:
@@ -180,7 +181,10 @@ class DecoderLM(L.TreeLM):
             o = L._sdpa(qg, k_l, v_l, mask)
             x = x + L.linear(attn["wo"], o.reshape(B, 1, H * hd))
             h2 = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], cfg, h2)
+            if cfg.family == "moe":
+                x = x + L.moe(lp["moe"], cfg, h2, group_size=B)[0]
+            else:
+                x = x + L.mlp(lp["mlp"], cfg, h2)
         logits = self._logits(x)[:, 0]
         new_cache = {"k": cache["k"], "v": cache["v"], "kpos": kpos,
                      "pos": pos + 1}

@@ -3,10 +3,11 @@ MLP block (arXiv:2411.15242), invoked at the start of every group of
 ``cfg.attn_every`` Mamba2 layers; each invocation keeps its own KV cache at
 decode time.
 
-The PyTorch counterpart of ``src/repro/models/zamba2.py`` for serving.  The
-shared block's prefill attention goes through ``layers.attention``, so
-kernel B3 serves it when ``flash_attention`` is on; the Mamba2 layers reuse
-``Mamba2LM``'s blocks, with B4 in their prefill.  The KV cache is not a ring:
+The PyTorch counterpart of ``src/repro/models/zamba2.py`` for serving and
+training.  The shared block's prefill and training attention goes through
+``layers.attention``, so kernel B3 serves it when ``flash_attention`` is
+on; the Mamba2 layers reuse ``Mamba2LM``'s blocks, with B4 in their prefill
+and training forward.  The KV cache is not a ring:
 position ``p`` lives in slot ``p``, and ``kpos`` marks the filled slots.
 """
 

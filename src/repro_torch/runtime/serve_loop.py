@@ -42,6 +42,11 @@ class ServeLoop:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeLoop(device='cuda') needs a CUDA card; "
                                "pass device='cpu' to serve on the host")
+        if cfg.family in ("audio", "vlm"):
+            raise ValueError(f"ServeLoop serves token prompts; the "
+                             f"{cfg.family} family also needs "
+                             f"{'frames' if cfg.family == 'audio' else 'vis'}"
+                             " (see launch.steps)")
         self.cfg = cfg
         if model is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)

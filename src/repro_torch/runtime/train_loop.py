@@ -14,7 +14,9 @@ checkpoint I/O, as host tasks over virtual buffers:
     subsequent steps (the save itself is async in CheckpointManager).
 
 The model and the optimizer state live on ``device``, the card unless the
-caller asks for the CPU; the step task moves its batch there.  A state is
+caller asks for the CPU; the step task moves its batch there, with the
+audio family's ``frames`` and the vlm family's ``vis`` (f32; the model casts
+them).  Every family of the model zoo trains.  A state is
 ``{"params": the model's parameters by name, "opt": adamw state}``; the
 step updates both in place.
 """
@@ -145,10 +147,15 @@ class TrainLoop:
                 return Box((t % self.depth, 0, 0),
                            (t % self.depth + 1, B, self.seq_len))
 
+            # frames or image features of step t's batch, from its prefetch
+            # (which the step depends on through the stage buffer)
+            extras = {}
             for t in range(start_step, start_step + num_steps):
                 def prefetch(chunk, v, t=t):
                     batch = self.data.local_batch(t)
-                    v.set(slot_region(t), batch["tokens"][None])
+                    v.set(slot_region(t), batch.pop("tokens")[None])
+                    batch.pop("labels")
+                    extras[t] = batch
 
                 rt.submit(f"prefetch{t}", (1,),
                           [write(stage, fixed(slot_region(t)))],
@@ -159,6 +166,8 @@ class TrainLoop:
                     if fail_at is not None and t == fail_at:
                         raise RuntimeError(f"injected failure at step {t}")
                     batch = {"tokens": toks, "labels": toks}
+                    for k, a in extras.pop(t).items():
+                        batch[k] = torch.from_numpy(a).to(self.device)
                     s = holder["state"]
                     p, o, m = train_step(s["params"], s["opt"], batch)
                     holder["state"] = {"params": p, "opt": o}

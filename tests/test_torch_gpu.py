@@ -135,10 +135,19 @@ FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
 
 # (S, T, K, G, hd): hd in {16, 24, 32, 80, 112, 128}; S * G not a multiple of
 # the bf16 kernel's 128-row blocks; T not a multiple of its 128-key tiles;
-# G = 1 (zamba2-7b's shared block has hd 112 and G 1)
+# G = 1 (zamba2-7b's shared block has hd 112 and G 1); then the model shapes
+# of the granite-moe configs (hd 64, K 8, G 2 and 3, a 2048-token prefill)
+# and of InternVL (hd 128, K 8, G 6, 256 image + 1024 text tokens)
+FLASH_MODEL_SHAPES = [(2048, 2048, 8, 2, 64), (2048, 2048, 8, 3, 64),
+                      (1280, 1280, 8, 6, 128)]
 FLASH_SHAPES = [(64, 64, 2, 3, 32), (100, 130, 2, 6, 80), (200, 200, 1, 4, 128),
                 (48, 96, 2, 1, 16), (77, 77, 2, 5, 24), (300, 333, 1, 1, 112),
-                (257, 300, 2, 6, 128)]
+                (257, 300, 2, 6, 128), *FLASH_MODEL_SHAPES]
+# B3's gradients under autograd against autograd through the einsum route
+# at the model shapes: f32 1e-4 of the largest magnitude (sums in other
+# orders); bf16 5e-2, chip_smoke.py's FLASH_GRAD_BF16_TOL (the einsum route
+# rounds the logits, the weights and every product to bf16)
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -214,6 +223,25 @@ def test_flash_gradients_on_card_match_cpu(cuda, G, window):
     assert flash_attention.launches == n0 + 1
     for a, b in zip(cpu, card):
         assert (b.grad.cpu() - a.grad).abs().max() <= 1e-4 * a.grad.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,K,G,hd", FLASH_MODEL_SHAPES)
+def test_flash_gradients_at_model_shapes_match_einsum(cuda, dtype, S, T, K,
+                                                      G, hd):
+    from repro_torch.models.layers import _sdpa, causal_mask
+    base = [_randn(1, S, K, G, hd, seed=45), _randn(1, T, K, hd, seed=46),
+            _randn(1, T, K, hd, seed=47)]
+    dout = _randn(1, S, K, G, hd, seed=48).to(cuda, dtype)
+    mask = causal_mask(S, T, device=cuda)
+    grads = []
+    for route in ("kernel", "einsum"):
+        qkv = [t.to(cuda, dtype).requires_grad_() for t in base]
+        out = flash_attention(*qkv) if route == "kernel" else _sdpa(*qkv, mask)
+        (out.float() * dout.float()).sum().backward()
+        grads.append([t.grad.float() for t in qkv])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= FLASH_GRAD_TOL[dtype] * b.abs().max()
 
 
 def test_records_carry_card_time(cuda):
@@ -423,6 +451,122 @@ def test_reduced_ssm_serve_loop_on_card_matches_cpu(cuda, arch):
     assert ssd_scan.launches == n0 + 2 * cfg.num_layers
     assert flash_attention.launches == f0 + 2 * groups
     assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_state", [False, True])
+def test_ssd_gradients_on_card_match_plain(cuda, dtype, use_state):
+    """B4 under autograd (the kernel's forward, the plain backward) against
+    autograd through the plain version on the card: y within the kernel's
+    tolerance, the gradients equal within 1e-6 of the largest (the same
+    plain backward from the same inputs), one launch."""
+    base = _ssd_inputs(2, 300, 4, 64, 128, dtype, cuda, seed=50)
+    dy = _randn(2, 300, 4, 64, seed=54).to(cuda, dtype)
+    dst = _randn(2, 4, 64, 128, seed=55).to(cuda)
+    outs = []
+    n0 = ssd_scan.launches
+    for fn in (ssd_scan, ssd_scan_plain):
+        ins = [t.detach().clone().requires_grad_() for t in base]
+        y, st = fn(*ins, 64)
+        loss = (y.float() * dy.float()).sum()
+        if use_state:
+            loss = loss + (st * dst).sum()
+        loss.backward()
+        outs.append((y.detach(), [t.grad.float() for t in ins]))
+    assert ssd_scan.launches == n0 + 1
+    (y, grads), (ye, grads_e) = outs
+    x, a, B, C = base
+    scale = ssd_scan_plain(x.float().abs(), a, B.float().abs(),
+                           C.float().abs(), 64)[0]
+    tol = 2e-4 if dtype == torch.float32 else 1.2e-2
+    assert ((y.float() - ye.float()).abs() <= tol * scale + 1e-6).all()
+    for a, b in zip(grads, grads_e):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+# -- the rest of the model zoo: reduced models on the card against the CPU ---------------
+def _reduced_pair(arch, seed, **kw):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(seed))
+    return cfg, cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def test_reduced_granite_serve_loop_on_card_matches_cpu(cuda):
+    """Reduced granite-moe-3b-a800m (f32) with B3: the card's ServeLoop gives
+    the CPU's tokens (decode steps route each batch as one MoE group)."""
+    cfg, cpu, card = _reduced_pair("granite-moe-3b-a800m", 56,
+                                   flash_attention=True)
+    rng = np.random.default_rng(57)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (40, 90, 65)]
+    outs = []
+    n0 = flash_attention.launches
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        sl = ServeLoop(cfg, model, max_batch=2, max_len=128, device=dev)
+        reqs = [sl.submit(p, max_new=6) for p in prompts]
+        sl.run_until_idle()
+        outs.append([r.output for r in reqs])
+    assert flash_attention.launches == n0 + 2 * cfg.num_layers
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-tiny",
+                                  "internvl2-26b", "mamba2-370m", "zamba2-7b"])
+def test_reduced_loss_and_gradients_on_card_match_cpu(cuda, arch):
+    """f32, B3 and B4 on: the loss within 1e-5 relative and every gradient
+    within 1e-4 of the largest of the CPU's, from the same weights and
+    batch (frames or image features included)."""
+    from repro_torch.launch.inputs import train_batch
+    cfg, cpu, card = _reduced_pair(arch, 58, flash_attention=True)
+    batch = train_batch(cfg, 2, 64, rng=np.random.default_rng(59),
+                        device="cpu")
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        model.requires_grad_(True)
+        loss = model.loss({k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses.append(loss.item())
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    got = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        g = got[name].grad.cpu()
+        assert (g - p.grad).abs().max() <= 1e-4 * p.grad.abs().max(), name
+
+
+def test_reduced_whisper_and_internvl_steps_on_card_match_cpu(cuda):
+    """Whisper's audio prefill step and eight decode steps, InternVL's vlm
+    prefill step (B3 in every layer) and six decode steps: the card's logits
+    within 1e-4 of the CPU's."""
+    from repro_torch.launch.inputs import train_batch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    for arch in ("whisper-tiny", "internvl2-26b"):
+        cfg, cpu, card = _reduced_pair(arch, 60, flash_attention=True)
+        batch = train_batch(cfg, 2, 24, rng=np.random.default_rng(61),
+                            device="cpu")
+        runs = []
+        f0 = flash_attention.launches
+        for model, dev in ((cpu, "cpu"), (card, cuda)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            pre = make_prefill_step(model, cfg, 64)
+            dec = make_decode_step(model, cfg)
+            with torch.inference_mode():
+                if cfg.family == "audio":
+                    logs = [pre(b)]
+                    enc = model.encode(b["frames"])
+                    cache = model.init_cache(2, 16, dev)
+                    for t in range(8):
+                        out, cache = dec(cache, b["tokens"][:, t:t + 1], enc)
+                        logs.append(out)
+                else:
+                    out, cache = pre(b)
+                    logs = [out]
+                    for _ in range(6):
+                        out, cache = dec(cache, logs[0].argmax(-1)[:, None])
+                        logs.append(out)
+            runs.append([x.cpu() for x in logs])
+        want = cfg.num_layers if cfg.family == "vlm" else 0
+        assert flash_attention.launches == f0 + want
+        for a, b in zip(*runs):
+            assert (a - b).abs().max() <= 1e-4, arch
 
 
 # -- reductions, budgets and lookahead on the card -----------------------------------------

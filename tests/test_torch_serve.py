@@ -24,7 +24,7 @@ from repro_torch.configs import ALIASES, ARCHITECTURES, LONG_CONTEXT_OK, SHAPES
 from repro_torch.configs import cells
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import serve
-from repro_torch.models import DecoderLM, build_model
+from repro_torch.models import DecoderLM
 from repro_torch.models import layers as L
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.runtime import ServeLoop
@@ -76,15 +76,6 @@ def test_registry_matches_jax():
     assert SHAPES == jc.SHAPES and LONG_CONTEXT_OK == jc.LONG_CONTEXT_OK
     for arch in ARCHITECTURES:
         assert cells(arch) == jc.cells(arch)
-
-
-@pytest.mark.parametrize("module,item", [
-    ("granite_moe_1b_a400m", "A14"), ("whisper_tiny", "A16"),
-    ("internvl2_26b", "A16"),
-])
-def test_unported_families_raise(module, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(get_config(module, reduced=True))
 
 
 # -- weights --------------------------------------------------------------------
