@@ -80,34 +80,49 @@ Phases, each printing one JSON line:
                 and batches; a run failing at step 5 restored from its
                 checkpoint against the uninterrupted run; ElasticTrainer
                 through one injected failure.
-6c. train     - qwen2-1.5b at full width (f32 weights, bf16 activations,
-                B3 in every layer's forward) through ``TrainLoop``: the first
-                step's loss and grad norm against the einsum route, a
-                warm-up step, then 4 steps of 2 x 2048 tokens (ms per step,
-                tokens/s, peak memory, 28 B3 launches a step, the first
-                batch's loss lower after the steps than before); then ``python -m repro_torch.launch.train --full
-                --flash --steps 2 --batch 1 --seq 1024`` once.
-6d. moe-train - granite-moe-1b-a400m at full width through ``TrainLoop``
-                under the train phase's rules (B3 forward, plain backward,
-                the einsum route as reference, the held-out check).
-6e. ssm-train - mamba2-370m at full width through ``TrainLoop``: B4 under
-                autograd in every layer (the kernel's forward, the plain
-                backward), the first step against the plain scan on the
-                card (loss within 1e-3, grad norm within 1e-2 relative),
-                a warm-up step, then 4 steps of 2 x 2048 tokens.
-6f. audio     - whisper-tiny at full width (1500 frames) in f32: encode, the
+6c. remat     - qwen2-1.5b and granite-moe-1b-a400m (B3) and mamba2-370m
+                (B4) at full width, f32 weights and moments, bf16
+                activations, 2 x 2048 tokens a step, each with ``cfg.remat``
+                on and off in this call: the first step's loss and grad norm
+                under both (within 1e-6 and 1e-5 relative, and whether they
+                and every gradient were bitwise equal), a warm-up train
+                step, then 2 timed steps (median ms per step, tokens/s),
+                peak memory from a reset (lower with remat on), and the
+                kernel's launches per step: twice per layer with remat on
+                (the forward and the backward's recompute), once without.
+6d. train     - qwen2-1.5b at full width (f32 weights, bf16 activations,
+                B3 in every layer's forward, remat on as the JAX package
+                configures it) through ``TrainLoop``: the first step's loss
+                and grad norm against the einsum route, a warm-up step,
+                then 4 steps of 2 x 2048 tokens (ms per step, tokens/s,
+                peak memory, 56 B3 launches a step: 28 in the forward, 28
+                in the recompute; the held-out batch's loss lower after 20
+                steps than before); then ``python -m
+                repro_torch.launch.train --full --flash --steps 2 --batch 1
+                --seq 1024`` once.
+6e. moe-train - granite-moe-1b-a400m at full width through ``TrainLoop``
+                under the train phase's rules (B3 forward and recompute,
+                plain backward, the einsum route as reference, the held-out
+                check).
+6f. ssm-train - mamba2-370m at full width through ``TrainLoop``: B4 under
+                autograd in every layer (the kernel's forward, again in the
+                recompute, the plain backward), the first step against the
+                plain scan on the card (loss within 1e-3, grad norm within
+                1e-2 relative), a warm-up step, then 4 steps of 2 x 2048
+                tokens.
+6g. audio     - whisper-tiny at full width (1500 frames) in f32: encode, the
                 audio prefill step, 32 decode steps from an empty cache
                 against the teacher-forced decoder on the same tokens
                 (1e-4); then 4 ``TrainLoop`` steps of 4 x 448 tokens in
                 bf16.  No kernel runs (the einsum route, as the reference).
-6g. moe-serve - granite-moe-3b-a800m at full width through ``ServeLoop``:
+6h. moe-serve - granite-moe-3b-a800m at full width through ``ServeLoop``:
                 the serve phase's traffic with prompt lengths rounded to
                 multiples of 128 (4 x S divides into MoE groups of 512),
                 f32 weights, bf16 activations, B3 in every prefill layer,
                 after a warm-up batch; one prefill batch in f32 activations
                 held against the einsum route (1e-3 of the largest logit),
                 the same in bf16 printed; then the launcher once.
-6h. vlm       - internvl2-26b at full width with bf16 weights (40 GB): 2
+6i. vlm       - internvl2-26b at full width with bf16 weights (40 GB): 2
                 requests of 256 image and 1024 text tokens through the vlm
                 prefill step (B3 in each of 48 layers) and 16 decode steps,
                 after a warm-up; held against the einsum route by the serve
@@ -158,6 +173,11 @@ Phases, each printing one JSON line:
                 CPU port's for the same window sequence at a small size, and
                 windows x 4 launches of B2 and B1; per-window latency p50
                 and p99 per tenant, the memo's patch time, the device peak.
+                Then fault C5's program: one tenant on ``ServingRuntime(2,
+                1, max_inflight_per_tenant=1)`` whose two windows exchange
+                halves between the nodes, with neighborhood and all-range
+                reads, each within 30 s and with the bytes of the uncapped
+                run.
 13. faults    - on the card: the N-body (2^17 bodies, 2 x 2, 10 steps) under
                 a chaos plan of drops, duplicates, delays and pilot drops,
                 bitwise equal to the fault-free run with retries and equal
@@ -179,9 +199,9 @@ Phases, each printing one JSON line:
                 device time by kernel.
 16. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5, 6c, 6d, 6e, 6g, 6h, 7 and 8 and each run of phase 12 are
-the main path: every launch count is set to 0 just before each and read
-just after.
+Phases 4, 5, 6d, 6e, 6f, 6h, 6i, 7 and 8, each run of phase 6c and each
+run of phase 12 are the main path: every launch count is set to 0 just
+before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
 before printing anything on standard output.
@@ -195,6 +215,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -385,6 +406,20 @@ MOE_F32_TOL = 1e-3
 # moe-train: granite-moe-1b-a400m at full width through TrainLoop, under the
 # train phase's rules and sizes
 MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+# remat: the three full-width training models, each with cfg.remat on and
+# off (f32 weights and moments, bf16 activations, TRAIN_BATCH x TRAIN_SEQ
+# tokens a step), REMAT_STEPS timed train steps after a warm-up step.  The
+# recompute runs the same kernels on the same inputs, so the first step's
+# loss and gradients are expected bitwise equal; the bounds allow for a
+# library routine that sums in another order in the recompute, and the
+# phase prints whether they were bitwise equal.
+REMAT_ARCHS = (SERVE_ARCH, MOE_TRAIN_ARCH, SSM_ARCH)
+REMAT_STEPS = 2
+REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL = 1e-6, 1e-5
+# serving-runtime's fault C5 case: a ServingRuntime(2, 1) with an admission
+# cap of 1 per tenant, two windows that exchange halves between the nodes,
+# each run under this deadline
+C5_DEADLINE_S = 30.0
 # audio: whisper-tiny at full width (1500 frames); decode steps from an
 # empty cache against the teacher-forced decoder on the same tokens, f32
 # activations, within AUDIO_TOL absolute; then TrainLoop steps
@@ -1184,11 +1219,77 @@ def served_run(device: str, kw: dict, u0, u1, P0, V0) -> dict:
             "verified": verified, "device_peak_bytes": peak}
 
 
+def exchange_windows(device: str, reads: str, cap) -> dict:
+    """Fault C5's program on ``ServingRuntime(2, 1,
+    max_inflight_per_tenant=cap)``: one tenant, float64 buffers A = 0..63
+    and B, window 1 ``B <- A + 1`` and window 2 ``A <- B + 1``, each
+    reading its source through ``reads`` (so each node receives the other
+    node's half), then A gathered."""
+    from repro_torch.core import (ServingRuntime, all_range, neighborhood,
+                                  one_to_one, read, write)
+    mapper = neighborhood((1,)) if reads == "neighborhood" else all_range()
+    t0 = time.perf_counter()
+    with ServingRuntime(2, 1, max_inflight_per_tenant=cap,
+                        device=device) as srv:
+        t = srv.tenant("t0")
+        a = t.buffer((64,), init=np.arange(64, dtype=np.float64), name="A")
+        b = t.buffer((64,), init=np.zeros(64), name="B")
+        for src, dst in ((a, b), (b, a)):
+            t.submit(f"{dst.name} <- {src.name} + 1", (64,),
+                     [read(src, mapper), write(dst, one_to_one())],
+                     lambda c, sv, dv: dv.set(c, sv.get(c) + 1.0))
+            t.run()
+        out = t.gather(a)
+        t.drain()
+        inflight = [v for ex in srv.executors
+                    for v in ex._tenant_inflight.values()]
+    return {"A": out, "inflight_after": inflight,
+            "seconds": time.perf_counter() - t0}
+
+
+def admission_cap_case(dev) -> dict:
+    """Fault C5 on the card: the exchanging program with a cap of 1, run on
+    a daemon thread joined after C5_DEADLINE_S, against the uncapped run,
+    for ``neighborhood`` and ``all_range`` reads."""
+    import threading
+    out = {}
+    for reads in ("neighborhood", "all_range"):
+        box = {}
+
+        def capped():
+            try:
+                box["run"] = exchange_windows(dev.type, reads, 1)
+            except Exception as e:           # reported below
+                box["error"] = repr(e)
+
+        th = threading.Thread(target=capped, daemon=True)
+        th.start()
+        th.join(C5_DEADLINE_S)
+        if th.is_alive() or "error" in box:
+            out[reads] = {"ok": False, "finished": not th.is_alive(),
+                          "error": box.get("error"),
+                          "deadline_s": C5_DEADLINE_S}
+            continue
+        got, want = box["run"], exchange_windows(dev.type, reads, None)
+        checks = {
+            "bytes_equal_uncapped": bool(np.array_equal(got["A"],
+                                                        want["A"])),
+            "values": bool(np.array_equal(want["A"],
+                                          np.arange(64) + 2.0)),
+            "inflight_drained": all(v == 0 for v in got["inflight_after"])}
+        out[reads] = {"ok": all(checks.values()), **checks,
+                      "capped_s": got["seconds"],
+                      "uncapped_s": want["seconds"],
+                      "deadline_s": C5_DEADLINE_S}
+    return out
+
+
 def phase_serving_runtime(dev) -> dict:
     """Two tenants on ServingRuntime(NODES, DEVICES) on the card, memo on,
     off, and on with renaming, two windows in flight and the sanitizer;
     each run's results bitwise against the same steps without the runtime,
-    its memo counts against the CPU port's on the same window sequence."""
+    its memo counts against the CPU port's on the same window sequence;
+    then fault C5's case (``admission_cap_case``)."""
     t_phase = time.perf_counter()
     from repro_torch.kernels.nbody import nbody_forces_rows
     from repro_torch.kernels.stencil5 import wave_step_rows
@@ -1247,11 +1348,14 @@ def phase_serving_runtime(dev) -> dict:
             "patch_us": r["patch_us"], "verify": r["verified"],
             "device_peak_bytes": r["device_peak_bytes"],
             "torch_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    cap_one = admission_cap_case(dev)
+    ok = ok and all(r["ok"] for r in cap_one.values())
     res = {"phase": "serving-runtime", "ok": ok, "grid": [NODES, DEVICES],
            "wave": {"field": [WAVE_H, WAVE_W],
                     "windows": SERVE_RT_WAVE_WINDOWS},
            "nbody": {"bodies": NBODY_N, "windows": SERVE_RT_NBODY_WINDOWS},
            "dtype": "float32", "runs": runs,
+           "admission_cap_1": cap_one,
            "seconds": time.perf_counter() - t_phase}
     emit(res)
     if not ok:
@@ -1575,13 +1679,17 @@ def zoo_reference_one(dev, arch: str) -> dict:
     launches = {k: f.launches - n0[k] for k, f in counters.items()}
     # B3 in every attention layer of a forward (the forward, the prefill
     # and the loss's; the decode steps take the einsum route), B4 in every
-    # Mamba2 layer's
+    # Mamba2 layer's; with cfg.remat the loss's backward runs the
+    # checkpointed layers' forward again (not Zamba2's shared attention
+    # block, which the JAX model does not checkpoint either)
     attn = {"moe": cfg.num_layers, "vlm": cfg.num_layers, "audio": 0,
             "ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
     mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     forwards = 3 if serves else 1
-    want = {"flash_attention": attn[cfg.family] * forwards,
-            "ssd_scan": mamba * forwards}
+    again = 1 if cfg.remat else 0
+    want = {"flash_attention": attn[cfg.family] * (
+                forwards + (0 if cfg.family == "hybrid" else again)),
+            "ssd_scan": mamba * (forwards + again)}
     loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
     res.update(cpu_loss=losses[0], card_loss=losses[1], loss_rel_diff=loss_rel,
                loss_rtol=ZOO_LOSS_RTOL, grad_max_err_over_largest=grad_err,
@@ -2827,7 +2935,9 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
     first step's loss and grad norm on ``kernel``'s route against the
     reference route (``set_route(model, cfg, False)``), a warm-up step,
     then the main path of TRAIN_STEPS steps with ``kernel`` launched once
-    per layer a step; with ``held_out``, more steps up to TRAIN_FALL_STEPS
+    per layer a step in the forward and, with ``cfg.remat`` (the default,
+    as in the JAX package), once more in the backward's recompute; with
+    ``held_out``, more steps up to TRAIN_FALL_STEPS
     and the loss of a batch never trained on must fall."""
     from repro_torch.models import build_model
     from repro_torch.runtime import TrainLoop
@@ -2881,8 +2991,9 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
            "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
            "grad_norms": warm.grad_norms + m.grad_norms,
            "overlap": loop.overlap, "kernel": kernel.__name__,
-           "launches": launches,
-           "launches_expected": cfg.num_layers * TRAIN_STEPS,
+           "remat": cfg.remat, "launches": launches,
+           "launches_expected": (cfg.num_layers * TRAIN_STEPS
+                                 * (2 if cfg.remat else 1)),
            "max_memory_allocated": peak}
     ok = (route_check["ok"] and launches == res["launches_expected"]
           and all(math.isfinite(x) for x in losses))
@@ -2905,6 +3016,197 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
     del loop, state, model, batch, toks
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+def grad_bits(params) -> list[int]:
+    """Per f32 gradient, the sum of its 32-bit patterns: lists that differ
+    mean gradients that differ in some bit."""
+    return torch.stack([p.grad.view(torch.int32).sum(dtype=torch.int64)
+                        for p in params]).tolist()
+
+
+def card_busy(run) -> dict:
+    """``run()`` under torch.profiler recording the card's activity alone
+    (cheaper to read back than ``device_activity``'s host and card
+    events): the wall time, the union of the card's kernel and copy
+    intervals, and the card's time by name (the ten largest)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = union_s((a, b) for _, a, b in spans) / 1e6
+    by_name: dict[str, float] = {}
+    for name, a, b in spans:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a) / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_events": len(spans), "device_ms_by_name": top}
+
+
+def remat_run(dev, arch: str, remat: bool, kernel,
+              profiled: bool = False) -> dict:
+    """``arch`` at full width with ``cfg.remat`` set to ``remat``: the
+    first step's loss, grad norm and gradient bits (no update), a warm-up
+    train step (``launch/steps.py``), then REMAT_STEPS timed train steps,
+    each ended by a sync, and with ``profiled`` one step under the
+    profiler (``card_busy``); peak memory over the run from a reset."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_config(arch), remat=remat,
+                              flash_attention=True)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)).requires_grad_(True)
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+
+    def batch(i):
+        toks = torch.from_numpy(data.local_batch(i)["tokens"]).to(dev)
+        return {"tokens": toks, "labels": toks}
+
+    params = dict(model.named_parameters())
+    loss = model.loss(batch(0))
+    loss.backward()
+    gn = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
+                        for p in params.values()))
+    first = {"loss": loss.item(), "grad_norm": gn.item(),
+             "grad_bits": grad_bits(params.values())}
+    del loss, gn
+    for p in params.values():
+        p.grad = None
+    step = make_train_step(model)
+    opt = adamw_init(params)
+    params, opt, _ = step(params, opt, batch(1))
+    torch.cuda.synchronize()
+    reset_launches()
+    times, losses = [], []
+    for i in range(REMAT_STEPS):
+        b = batch(2 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    launches = kernel.launches
+    prof = None
+    if profiled:
+        # one more step under the profiler: how busy the card is in a step
+        b, out = batch(2 + REMAT_STEPS), {}
+
+        def one_step():
+            out["step"] = step(params, opt, b)
+
+        prof = card_busy(one_step)
+        params, opt, _ = out.pop("step")
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = statistics.median(times)
+    res = {"remat": remat, "layers": cfg.num_layers, "first_step": first,
+           "step_s": times, "ms_per_step": step_s * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "losses": losses, "launches": launches,
+           "launches_per_step": launches / REMAT_STEPS,
+           "max_memory_allocated": peak, "profiled_step": prof}
+    del model, params, opt, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_setting(runs: list[dict]) -> dict:
+    """The runs of one remat setting together: the median over all their
+    timed steps, the largest peak, each run's launches per step, and the
+    first run's profiled step."""
+    times = [t for r in runs for t in r["step_s"]]
+    step_s = statistics.median(times)
+    return {"runs": len(runs), "step_s": times, "ms_per_step": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "max_memory_allocated": max(r["max_memory_allocated"]
+                                        for r in runs),
+            "launches_per_step": [r["launches_per_step"] for r in runs],
+            "losses": [x for r in runs for x in r["losses"]],
+            "profiled_step": runs[0]["profiled_step"]}
+
+
+def phase_remat(dev) -> dict:
+    """Each of REMAT_ARCHS with remat on and off in this call, in turns
+    (on, off, off, on): ms per step, tokens/s, peak memory, kernel launches
+    per step, the card's busy time in a profiled step of the first run of
+    each setting, and the first
+    step's loss and grad norm under both, with whether they and the
+    gradients were bitwise equal.  Fails unless the loss and grad norm
+    agree within REMAT_LOSS_RTOL and REMAT_GRAD_NORM_RTOL, the peak is
+    lower with remat on, and the kernel (B3, or B4 for the Mamba2 model)
+    runs twice per layer a step with remat on (forward and recompute) and
+    once with it off."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+    t_phase = time.perf_counter()
+    models, ok = {}, True
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch in REMAT_ARCHS:
+        kernel = ssd_scan if arch == SSM_ARCH else flash_attention
+        runs = {True: [], False: []}
+        for i, remat in enumerate((True, False, False, True)):
+            r = remat_run(dev, arch, remat, kernel, profiled=i < 2)
+            launches[kernel.__name__] += r["launches"]
+            runs[remat].append(r)
+        first = {k: [r.pop("first_step") for r in v] for k, v in runs.items()}
+        f_on, f_off = first[True][0], first[False][0]
+        on, off = remat_setting(runs[True]), remat_setting(runs[False])
+        layers = runs[True][0]["layers"]
+        loss_rel = abs(f_on["loss"] - f_off["loss"]) / abs(f_off["loss"])
+        gn_rel = (abs(f_on["grad_norm"] - f_off["grad_norm"])
+                  / abs(f_off["grad_norm"]))
+        checks = {
+            "loss_within_tol": loss_rel <= REMAT_LOSS_RTOL,
+            "grad_norm_within_tol": gn_rel <= REMAT_GRAD_NORM_RTOL,
+            "peak_lower_with_remat": (on["max_memory_allocated"]
+                                      < off["max_memory_allocated"]),
+            "launches_twice_per_layer_with_remat": all(
+                n == 2 * layers for n in on["launches_per_step"]),
+            "launches_once_per_layer_without": all(
+                n == layers for n in off["launches_per_step"]),
+            "finite": all(math.isfinite(x) for x in (
+                f_on["loss"], f_on["grad_norm"], *on["losses"],
+                *off["losses"]))}
+        ok = ok and all(checks.values())
+        models[arch] = {
+            "kernel": kernel.__name__, "layers": layers, **checks,
+            "first_step": {
+                "remat_on": {k: f_on[k] for k in ("loss", "grad_norm")},
+                "remat_off": {k: f_off[k] for k in ("loss", "grad_norm")},
+                "loss_rel_diff": loss_rel, "grad_norm_rel_diff": gn_rel,
+                "loss_bitwise": f_on["loss"] == f_off["loss"],
+                "grad_norm_bitwise": f_on["grad_norm"] == f_off["grad_norm"],
+                "gradients_bitwise": f_on["grad_bits"] == f_off["grad_bits"],
+                "repeat_runs_bitwise": all(f == first[k][0]
+                                           for k in first
+                                           for f in first[k])},
+            "step_time_ratio": on["ms_per_step"] / off["ms_per_step"],
+            "peak_ratio": (on["max_memory_allocated"]
+                           / off["max_memory_allocated"]),
+            "remat_on": on, "remat_off": off}
+    res = {"phase": "remat", "ok": ok, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "order": "on, off, off, on", "timed_steps_per_run": REMAT_STEPS,
+           "param_dtype": "float32", "dtype": "bfloat16",
+           "loss_rtol": REMAT_LOSS_RTOL,
+           "grad_norm_rtol": REMAT_GRAD_NORM_RTOL, "models": models,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not ok:
+        raise SystemExit("remat phase failed")
     return res
 
 
@@ -3024,6 +3326,7 @@ def main() -> int:
     phase_serve_reference(dev)
     phase_zoo_reference(dev)
     phase_train_reference(dev)
+    remat = phase_remat(dev)
     train = phase_train(dev)
     moe_train = phase_moe_train(dev)
     ssm_train = phase_ssm_train(dev)
@@ -3048,8 +3351,10 @@ def main() -> int:
     launches = {"nbody_forces_rows": nbody["launches"],
                 "wave_step_rows": wave["launches"],
                 "flash_attention": sum(r["launches"] for r in (
-                    serve, train, moe_serve, moe_train, vlm)),
-                "ssd_scan": ssm["launches"] + ssm_train["launches"]}
+                    serve, train, moe_serve, moe_train, vlm))
+                + remat["launches"]["flash_attention"],
+                "ssd_scan": ssm["launches"] + ssm_train["launches"]
+                + remat["launches"]["ssd_scan"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",

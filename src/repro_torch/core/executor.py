@@ -54,6 +54,13 @@ from .instruction_graph import (AccessorBinding, EpochAbort, Instruction,
 from .observability import WAIT_CLASSES, WAIT_DEP, WAIT_OF, WAIT_QUEUE
 from .region import Box, Region
 
+# instructions that complete only when a peer's message lands (the arbiter
+# completes them); they take no admission slot of their tenant
+_PEER_WAIT = frozenset((
+    InstructionType.RECEIVE, InstructionType.SPLIT_RECEIVE,
+    InstructionType.AWAIT_RECEIVE, InstructionType.GATHER_RECEIVE,
+    InstructionType.COLL_RECV))
+
 
 class BoundsError(RuntimeError):
     """Raised after a kernel when accesses fell outside the declared region."""
@@ -298,13 +305,19 @@ class Executor:
         # -- multi-tenant serving (core/memo.py, DESIGN.md §12) -----------
         # Instructions tagged with a tenant name are issued from per-tenant
         # ready queues in round-robin order (fair-share interleaving), with
-        # ``max_inflight_per_tenant`` bounding how many one tenant may have
-        # between admission and completion (admission control).  Untagged
-        # instructions (tenant None) keep the original single-queue fast
-        # path untouched.  Eager issue bypasses admission (it must follow
-        # its in-order queue), so the bound is approximate under eager
-        # cascades — acceptable: fairness is a scheduling policy, not a
-        # correctness invariant.
+        # ``max_inflight_per_tenant`` bounding how many of one tenant's
+        # kernels, copies, sends, allocations and host tasks may be between
+        # admission and completion (admission control).  Receive-side
+        # instructions (``_PEER_WAIT``) pass admission without a slot: one
+        # completes only when the peer's send lands, and the peer's send
+        # may wait for a slot behind the peer's own receive, so a counted
+        # receive on each of two nodes deadlocks both.  Every counted
+        # instruction completes without a peer (a send only posts), so the
+        # deferred queue always drains.  Untagged instructions (tenant
+        # None) keep the original single-queue fast path untouched.  Eager
+        # issue bypasses admission (it must follow its in-order queue), so
+        # the bound is approximate under eager cascades — acceptable:
+        # fairness is a scheduling policy, not a correctness invariant.
         self.max_inflight_per_tenant = max_inflight_per_tenant
         self._tenant_ready: dict[str, deque[Instruction]] = {}
         self._tenant_rr: deque[str] = deque()      # round-robin rotation
@@ -621,12 +634,13 @@ class Executor:
     def _enqueue_tenant(self, instr: Instruction) -> None:
         """Admit (or defer) one ready tenant-tagged instruction."""
         t = instr.tenant
-        cap = self.max_inflight_per_tenant
-        if cap is not None and self._tenant_inflight.get(t, 0) >= cap:
-            self._tenant_deferred.setdefault(t, deque()).append(instr)
-            self._deferred_count += 1
-            return
-        self._tenant_inflight[t] = self._tenant_inflight.get(t, 0) + 1
+        if instr.itype not in _PEER_WAIT:
+            cap = self.max_inflight_per_tenant
+            if cap is not None and self._tenant_inflight.get(t, 0) >= cap:
+                self._tenant_deferred.setdefault(t, deque()).append(instr)
+                self._deferred_count += 1
+                return
+            self._tenant_inflight[t] = self._tenant_inflight.get(t, 0) + 1
         instr._admitted = True
         q = self._tenant_ready.get(t)
         if q is None:
@@ -757,9 +771,7 @@ class Executor:
             # Tracer opts out (spans derive from completion records)
             self._issue_tracer.issue(self.node, instr)
         it = instr.itype
-        if it in (InstructionType.RECEIVE, InstructionType.SPLIT_RECEIVE,
-                  InstructionType.AWAIT_RECEIVE, InstructionType.GATHER_RECEIVE,
-                  InstructionType.COLL_RECV):
+        if it in _PEER_WAIT:
             if self._obs:
                 instr._start_t = t      # arbiter-handled: no lane dequeue
             self.arbiter.begin(instr)       # completion via arbiter polling
@@ -851,7 +863,7 @@ class Executor:
                     ws.add(w)
                     if len(ws) > self.tenant_window_peak.get(tn, 0):
                         self.tenant_window_peak[tn] = len(ws)
-            if getattr(instr, "_admitted", False):
+            if getattr(instr, "_admitted", False) and it not in _PEER_WAIT:
                 n = self._tenant_inflight.get(tn, 0) - 1
                 self._tenant_inflight[tn] = n if n > 0 else 0
             dq = self._tenant_deferred.get(tn)

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF, flash_attention
 
@@ -32,6 +33,18 @@ def _normal(shape, dtype, scale, generator: torch.Generator) -> torch.Tensor:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def remat(cfg, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with its activations recomputed in the
+    backward when ``cfg.remat`` is set and autograd is recording: the
+    layer bodies the JAX package wraps in ``jax.checkpoint``.  Serving and
+    decode (no grad) call ``fn`` as it is.  The bodies draw no random
+    numbers, so no RNG state is stashed for the recompute."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 class Tree(nn.Module):

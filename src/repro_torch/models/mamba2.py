@@ -6,7 +6,8 @@ training.  Prefill and the training forward run the chunked SSD scan through
 CPU; under autograd with the plain backward), and prefill keeps each
 layer's final state; decode is the O(1) recurrent update in the activation
 dtype, rounded where the JAX package rounds it.  JAX's ``scan`` over stacked
-layers becomes a loop over an ``nn.ModuleList``.
+layers becomes a loop over an ``nn.ModuleList``; with ``cfg.remat`` the
+training forward recomputes each layer in the backward (``layers.remat``).
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ class Mamba2LM(L.TreeLM):
     def forward(self, ids):
         x = L.embed(self.params["embed"], ids).to(self.cfg.adt)
         for lp in self.layers:
-            x = self.layer(lp, x)[0]
+            x = L.remat(self.cfg, self.layer, lp, x)[0]
         return self._logits(x), 0.0
 
     # -- decode (recurrent; O(1) in sequence length) ---------------------------------

@@ -4,10 +4,12 @@ and a KV-cached decode (ring buffer for the sliding window).
 The PyTorch counterpart of ``src/repro/models/transformer.py`` for serving
 and training; also the language backbone of InternVL (the vlm family).
 JAX's ``scan`` over stacked layers becomes a loop over an
-``nn.ModuleList``; ``remat`` is not ported: the backward keeps every layer's
-activations.  An MoE layer routes groups of ``cfg.moe_group`` tokens in
-prefill and training, and the whole batch's B tokens in a decode step (so
-capacity drops many assignments there, by the reference's design).
+``nn.ModuleList``; with ``cfg.remat`` each layer's block is recomputed in
+the backward (``layers.remat``), as the JAX package checkpoints its scan
+body, so training keeps only the layers' inputs.  An MoE layer routes
+groups of ``cfg.moe_group`` tokens in prefill and training, and the whole
+batch's B tokens in a decode step (so capacity drops many assignments
+there, by the reference's design).
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ class DecoderLM(L.TreeLM):
         ``[B,S,K,hd]``."""
         aux, kvs = 0.0, []
         for lp in self.layers:
-            x, a, kv = self._block(lp, x, positions, mask, causal=True)
+            x, a, kv = L.remat(self.cfg, self._block, lp, x, positions, mask,
+                               causal=True)
             aux = aux + a
             if return_cache:
                 kvs.append(kv)

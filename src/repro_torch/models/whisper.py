@@ -12,7 +12,8 @@ asks for the kernel), so no kernel runs here.
 The weights are :class:`layers.Tree` modules in the JAX package's layout:
 top-level parameters in ``params`` (``embed``, ``pos_dec``, ``ln_enc``,
 ``ln_f``) and one tree per layer in ``enc`` and ``dec``.  JAX's ``scan``
-over stacked layers becomes a loop.
+over stacked layers becomes a loop; with ``cfg.remat`` training recomputes
+each encoder and decoder layer in the backward (``layers.remat``).
 """
 
 from __future__ import annotations
@@ -97,12 +98,17 @@ class WhisperModel(nn.Module):
         positions = torch.arange(F, device=frames.device)
         mask = torch.ones((F, F), dtype=torch.bool, device=frames.device)
         for lp in self.enc:
-            a, _ = L.attention(lp["attn"], cfg,
-                               L.rms_norm(lp["ln1"], x, cfg.norm_eps),
-                               positions, mask)
-            x = x + a
-            x = x + L.mlp(lp["mlp"], cfg, L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+            x = L.remat(cfg, self._enc_layer, lp, x, positions, mask)
         return L.rms_norm(self.params["ln_enc"], x, cfg.norm_eps)
+
+    def _enc_layer(self, lp, x, positions, mask):
+        cfg = self.cfg
+        a, _ = L.attention(lp["attn"], cfg,
+                           L.rms_norm(lp["ln1"], x, cfg.norm_eps),
+                           positions, mask)
+        x = x + a
+        return x + L.mlp(lp["mlp"], cfg,
+                         L.rms_norm(lp["ln2"], x, cfg.norm_eps))
 
     # -- decoder ------------------------------------------------------------------
     def _cross_kv(self, lp, enc_out):
@@ -130,16 +136,24 @@ class WhisperModel(nn.Module):
         self_mask = L.causal_mask(S, S, device=dev)
         x_mask = torch.ones((S, F), dtype=torch.bool, device=dev)
         for lp in self.dec:
-            a, _ = L.attention(lp["attn"], cfg,
-                               L.rms_norm(lp["ln1"], x, cfg.norm_eps),
-                               positions, self_mask, causal=True)
-            x = x + a
-            a, _ = L.attention(lp["xattn"], cfg,
-                               L.rms_norm(lp["lnx"], x, cfg.norm_eps),
-                               positions, x_mask, kv=self._cross_kv(lp, enc_out))
-            x = x + a
-            x = x + L.mlp(lp["mlp"], cfg, L.rms_norm(lp["ln2"], x, cfg.norm_eps))
+            x = L.remat(cfg, self._dec_layer, lp, x, enc_out, positions,
+                        self_mask, x_mask)
         return self._head(x)
+
+    def _dec_layer(self, lp, x, enc_out, positions, self_mask, x_mask):
+        """One teacher-forced decoder layer, the cross K/V included (the
+        JAX model computes them inside its checkpointed body)."""
+        cfg = self.cfg
+        a, _ = L.attention(lp["attn"], cfg,
+                           L.rms_norm(lp["ln1"], x, cfg.norm_eps),
+                           positions, self_mask, causal=True)
+        x = x + a
+        a, _ = L.attention(lp["xattn"], cfg,
+                           L.rms_norm(lp["lnx"], x, cfg.norm_eps),
+                           positions, x_mask, kv=self._cross_kv(lp, enc_out))
+        x = x + a
+        return x + L.mlp(lp["mlp"], cfg,
+                         L.rms_norm(lp["ln2"], x, cfg.norm_eps))
 
     def forward(self, batch: dict):
         enc_out = self.encode(batch["frames"])

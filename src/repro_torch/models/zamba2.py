@@ -7,7 +7,9 @@ The PyTorch counterpart of ``src/repro/models/zamba2.py`` for serving and
 training.  The shared block's prefill and training attention goes through
 ``layers.attention``, so kernel B3 serves it when ``flash_attention`` is
 on; the Mamba2 layers reuse ``Mamba2LM``'s blocks, with B4 in their prefill
-and training forward.  The KV cache is not a ring:
+and training forward.  With ``cfg.remat`` the training forward
+recomputes the Mamba2 layers in the backward, not the shared block, as the
+JAX model checkpoints its inner scan only.  The KV cache is not a ring:
 position ``p`` lives in slot ``p``, and ``kpos`` marks the filled slots.
 """
 
@@ -84,7 +86,8 @@ class Zamba2LM(L.TreeLM):
             x, kv = self._shared_block(x, positions, mask)
             kvs.append(kv)
             for li in self._group(gi):
-                x, conv_tail, hlast = self.mamba.layer(self.layers[li], x)
+                x, conv_tail, hlast = L.remat(self.cfg, self.mamba.layer,
+                                              self.layers[li], x)
                 convs.append(conv_tail)
                 ssms.append(hlast)
         return x, kvs, convs, ssms

@@ -9,6 +9,8 @@ import copy
 import dataclasses
 import gc
 import math
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -18,8 +20,8 @@ from repro_torch.apps import (NBody, WaveSim, body_energies, run_nbody,
                               run_rsim, run_wave, serve_simulations)
 from repro_torch.configs import get_config
 from repro_torch.core import (Box, ExecutionAborted, FaultPlan, Runtime,
-                              ServingRuntime, all_range, one_to_one, read,
-                              read_write, reduction, write)
+                              ServingRuntime, all_range, neighborhood,
+                              one_to_one, read, read_write, reduction, write)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import build_model
@@ -820,3 +822,145 @@ def test_crash_teardown_returns_device_memory(cuda):
         assert torch.cuda.memory_allocated() == before
     finally:
         gc.enable()
+
+
+# -- the core parity twins on the card's streams, and fault C5 ----------------
+class _RecordingTracer:
+    """Tracer double: (event, name) in order, as in
+    ``tests/test_torch_executor_ready.py``."""
+
+    def __init__(self):
+        self.events = []
+        self._lock = threading.Lock()
+
+    def issue(self, node, instr):
+        with self._lock:
+            self.events.append(("issue", instr.name))
+
+    def record(self, node, instr, lane, **stamps):
+        with self._lock:
+            self.events.append(("complete", instr.name))
+
+    def counter(self, name, value):
+        pass
+
+    def wait_for(self, event, timeout=5.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                if event in self.events:
+                    return True
+            time.sleep(0.001)
+        return False
+
+    def snapshot(self):
+        with self._lock:
+            return list(self.events)
+
+
+def test_eager_issue_on_one_stream_on_card(cuda):
+    """A device instruction whose unfinished dependency sits on one card
+    stream is issued before that dependency completes, onto the same
+    stream, and completes after it (§4.1)."""
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.instruction_graph import (Instruction,
+                                                    InstructionType)
+    from repro_torch.core.task_graph import DepKind
+
+    def kernel(name, fn, deps=()):
+        i = Instruction(InstructionType.DEVICE_KERNEL, node=0,
+                        queue=("device", 0), kernel_fn=fn, name=name,
+                        device=0)
+        for d in deps:
+            i.add_dependency(d, DepKind.TRUE)
+        return i
+
+    tracer = _RecordingTracer()
+    ex = Executor(0, 1, Communicator(1), device=cuda, queues_per_device=2,
+                  host_threads=1, tracer=tracer)
+    gate = threading.Event()
+    try:
+        a = kernel("A", lambda chunk: gate.wait(5))
+        b = kernel("B", lambda chunk: torch.cuda._sleep(1000), deps=[a])
+        ex.submit([a, b])
+        assert tracer.wait_for(("issue", "A"))
+        assert tracer.wait_for(("issue", "B"))
+        assert ("complete", "A") not in tracer.snapshot()
+        qa, qb = ex._issued_on.get(a.iid), ex._issued_on.get(b.iid)
+        assert qa is not None and qa is qb
+        gate.set()
+        assert tracer.wait_for(("complete", "B"))
+        ev = tracer.snapshot()
+        assert ev.index(("complete", "A")) < ev.index(("complete", "B"))
+    finally:
+        gate.set()
+        ex.shutdown()
+
+
+def test_scheduler_overlaps_execution_on_card(cuda):
+    """30 kernels on 1 x 2 cards' streams, traced: the scheduler's and the
+    device lanes' spans are recorded, their overlap is computable, and the
+    result is the 30 increments."""
+    with Runtime(1, 2, trace=True, device="cuda") as rt:
+        X = rt.buffer((64,), init=np.zeros(64), name="X")
+
+        def slow(chunk, xv):
+            torch.cuda._sleep(2_000_000)
+            xv.set(chunk, xv.get(chunk) + 1)
+
+        for i in range(30):
+            rt.submit(f"k{i}", (64,), [read_write(X, one_to_one())], slow)
+        rt.sync()
+        out = rt.gather(X)
+        tr = rt.tracer
+    lanes = tr.lanes()
+    assert any(n.startswith("sched-") for n in lanes)
+    assert any(".device" in n for n in lanes), lanes.keys()
+    assert tr.overlap_fraction("sched-N0", "N0.device") >= 0.0
+    np.testing.assert_array_equal(out, np.full(64, 30.0))
+
+
+def _exchange_on_card(mapper, cap):
+    """``tests/test_torch_memo.py``'s exchanging program (fault C5) on a
+    ``ServingRuntime(2, 1)`` on the card: A and the in-flight counts."""
+    n = 64
+    with ServingRuntime(2, 1, max_inflight_per_tenant=cap) as srv:
+        t = srv.tenant("t0")
+        a = t.buffer((n,), init=np.arange(n, dtype=np.float64), name="A")
+        b = t.buffer((n,), init=np.zeros(n), name="B")
+        for src, dst in ((a, b), (b, a)):
+            t.submit(f"{dst.name} <- {src.name} + 1", (n,),
+                     [read(src, mapper), write(dst, one_to_one())],
+                     lambda c, s, d: d.set(c, s.get(c) + 1.0))
+            t.run()
+        out = t.gather(a)
+        t.drain()
+        inflight = [dict(ex._tenant_inflight) for ex in srv.executors]
+    return out, inflight
+
+
+@pytest.mark.parametrize("reads", ["neighborhood", "all_range"])
+def test_admission_cap_of_one_on_exchanging_windows_on_card(cuda, reads):
+    """Fault C5 on the card: the capped run finishes within 30 s with the
+    bytes of the uncapped one, and its in-flight counts drain."""
+    mapper = neighborhood((1,)) if reads == "neighborhood" else all_range()
+    result = {}
+
+    def capped():
+        try:
+            result["out"] = _exchange_on_card(mapper, 1)
+        except BaseException as e:
+            result["error"] = e
+
+    th = threading.Thread(target=capped, daemon=True)
+    th.start()
+    th.join(30.0)
+    assert not th.is_alive(), "cap 1 did not finish within 30 s (fault C5)"
+    if "error" in result:
+        raise result["error"]
+    got, inflight = result["out"]
+    want, _ = _exchange_on_card(mapper, None)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, np.arange(64) + 2.0)
+    assert all(v == 0 for counts in inflight for v in counts.values())

@@ -542,7 +542,7 @@ def test_served_simulations_counts_and_bits(run, H, W, bodies):
     assert len(out["nbody"]["latency_s"]) == 10
 
 
-# -- windows of several shapes in turn (fault C3) -------------------------------
+# -- windows of several shapes in turn (fault C3) -----------------------------
 # WaveSim's buffers rotate, so its windows take three shapes in turn.  The
 # reference replays a template after any window and leaves the scheduler
 # state at the last cold lowering, so the cold windows after replays (here
@@ -592,3 +592,66 @@ def test_rotating_windows_replay_as_cold(order):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     assert stats["replayed"] > 0
+
+
+# -- fault C5: an admission cap of 1 on windows that exchange between nodes ---
+EXCHANGE_N = 64
+EXCHANGE_DEADLINE_S = 30.0
+
+
+def _add_one(chunk, src, dst):
+    dst.set(chunk, src.get(chunk) + 1.0)
+
+
+def _exchange(read_mapper, cap):
+    """One tenant on the port's ``ServingRuntime(2, 1)`` with
+    ``max_inflight_per_tenant=cap``: window 1 computes ``B <- A + 1``,
+    window 2 ``A <- B + 1``, each reading its source through
+    ``read_mapper`` (so each node receives the other's half), then A is
+    gathered.  Returns A and each executor's in-flight counts after the
+    drain."""
+    with _serving(port_core, 2, 1, max_inflight_per_tenant=cap) as srv:
+        t = srv.tenant("t0")
+        a = t.buffer((EXCHANGE_N,), name="A",
+                     init=np.arange(EXCHANGE_N, dtype=np.float64))
+        b = t.buffer((EXCHANGE_N,), init=np.zeros(EXCHANGE_N), name="B")
+        for src, dst in ((a, b), (b, a)):
+            t.submit(f"{dst.name} <- {src.name} + 1", (EXCHANGE_N,),
+                     [port_core.read(src, read_mapper),
+                      port_core.write(dst, port_core.one_to_one())], _add_one)
+            t.run()
+        out = t.gather(a)
+        t.drain()
+        inflight = [dict(ex._tenant_inflight) for ex in srv.executors]
+    return out, inflight
+
+
+@pytest.mark.parametrize("reads", ["neighborhood", "all_range"])
+def test_admission_cap_of_one_on_exchanging_windows(reads):
+    """Fault C5: with a cap of 1, each node's receive used to hold the
+    tenant's one slot while the peer's send waited behind the peer's own
+    receive, and the gather never returned.  Under a deadline (a daemon
+    thread, so a regression fails instead of hanging the suite) the capped
+    run must give the bytes of the uncapped one and drain its counts."""
+    mapper = (port_core.neighborhood((1,)) if reads == "neighborhood"
+              else port_core.all_range())
+    result = {}
+
+    def capped():
+        try:
+            result["out"] = _exchange(mapper, 1)
+        except BaseException as e:      # reported by the test thread
+            result["error"] = e
+
+    th = threading.Thread(target=capped, daemon=True)
+    th.start()
+    th.join(EXCHANGE_DEADLINE_S)
+    assert not th.is_alive(), (
+        f"cap 1 did not finish within {EXCHANGE_DEADLINE_S} s (fault C5)")
+    if "error" in result:
+        raise result["error"]
+    got, inflight = result["out"]
+    want, _ = _exchange(mapper, None)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, np.arange(EXCHANGE_N) + 2.0)
+    assert all(v == 0 for counts in inflight for v in counts.values())
