@@ -90,6 +90,20 @@ Phases, each printing one JSON line:
                 peak memory from a reset (lower with remat on), and the
                 kernel's launches per step: twice per layer with remat on
                 (the forward and the backward's recompute), once without.
+6c2. dryrun   - the dry-run (``repro_torch.launch.dryrun``) over fake CUDA
+                tensors, no kernel launched: ``lower_cell`` of qwen2-1.5b,
+                granite-moe-3b-a800m and mamba2-370m at ``train_4k`` and
+                ``prefill_32k`` and qwen2-1.5b at ``decode_32k``, each on the
+                (16, 16) and (2, 16, 16) meshes (one process a cell, run
+                side by side), every record printed; then, at mesh (1, 1),
+                qwen2-1.5b, granite-moe-1b-a400m and mamba2-370m at the remat
+                phase's setting (2 x 2048 tokens, f32 weights and moments,
+                bf16 activations, B3/B4, remat on): the trace's per-card peak
+                (argument + temp) against ``max_memory_allocated`` of a real
+                train step after a warm-up step (within 10%), its FLOPs
+                against a ``FlopCounterMode`` count of a real step (within
+                1e-6), and its roofline step time ``max(flops / peak,
+                bytes / HBM)`` beside the measured step.
 6d. train     - qwen2-1.5b at full width (f32 weights, bf16 activations,
                 B3 in every layer's forward, remat on as the JAX package
                 configures it) through ``TrainLoop``: the first step's loss
@@ -199,9 +213,9 @@ Phases, each printing one JSON line:
                 device time by kernel.
 16. the ``kernels`` summary line, then the device line.
 
-Phases 4, 5, 6d, 6e, 6f, 6h, 6i, 7 and 8, each run of phase 6c and each
-run of phase 12 are the main path: every launch count is set to 0 just
-before each and read just after.
+Phases 4, 5, 6d, 6e, 6f, 6h, 6i, 7 and 8, each run of phase 6c, the real
+steps of phase 6c2 and each run of phase 12 are the main path: every launch
+count is set to 0 just before each and read just after.
 
 Any failed phase exits non-zero.  Without a CUDA card the script exits 1
 before printing anything on standard output.
@@ -218,6 +232,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -416,6 +431,17 @@ MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 REMAT_ARCHS = (SERVE_ARCH, MOE_TRAIN_ARCH, SSM_ARCH)
 REMAT_STEPS = 2
 REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL = 1e-6, 1e-5
+# dryrun: the production cells traced over fake CUDA tensors on both
+# meshes, and the archs held against a real step at mesh (1, 1) under the
+# remat phase's setting: the predicted peak within DRYRUN_PEAK_RTOL of
+# max_memory_allocated, the FLOPs within DRYRUN_FLOPS_RTOL of a
+# FlopCounterMode count of the real step (the same ops)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("granite-moe-3b-a800m", "train_4k"),
+                ("mamba2-370m", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
+                ("granite-moe-3b-a800m", "prefill_32k"),
+                ("mamba2-370m", "prefill_32k"), ("qwen2-1.5b", "decode_32k"))
+DRYRUN_CARD_ARCHS = REMAT_ARCHS
+DRYRUN_PEAK_RTOL, DRYRUN_FLOPS_RTOL = 0.10, 1e-6
 # serving-runtime's fault C5 case: a ServingRuntime(2, 1) with an admission
 # cap of 1 per tenant, two windows that exchange halves between the nodes,
 # each run under this deadline
@@ -475,6 +501,21 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int, warmup: int = 1) -> float:
+    """The host's time to enqueue one call of ``fn``, from a synchronized
+    start, without waiting for the card (``reps`` calls must fit the
+    launch queue): a wrapper's dispatch cost apart from its kernel's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
 def phase_build() -> str:
@@ -2398,6 +2439,13 @@ def ssd_train_timing(dev, g: torch.Generator) -> dict:
     _, s, h, p, n, chunk = SSD_MAIN
     x, a, B, C = ssd_inputs(TRAIN_BATCH, s, h, p, n, torch.bfloat16, dev, g)
     ms = cuda_ms(lambda: ssd_scan(x, a, B, C, chunk), reps=10, warmup=2)
+    def op():
+        return torch.ops.repro_torch.ssd_scan_fwd(x, a, B, C, chunk)
+
+    op_ms = cuda_ms(op, reps=10, warmup=2)
+    enqueue = {"host_ms": host_ms(lambda: ssd_scan(x, a, B, C, chunk),
+                                  reps=10),
+             "op_host_ms": host_ms(op, reps=10)}
     plain_ms = cuda_ms(lambda: ssd_scan_plain(x, a, B, C, chunk), reps=3)
     y, _ = ssd_scan(x, a, B, C, chunk)
     e = errors(y, ssd_scan_plain(x, a, B, C, chunk)[0], "ssd_scan.bfloat16",
@@ -2408,7 +2456,8 @@ def ssd_train_timing(dev, g: torch.Generator) -> dict:
     backward_ms = cuda_ms(lambda: torch.autograd.grad(
         yg, ins, dy, retain_graph=True), reps=3)
     return {"shape": [TRAIN_BATCH, s, h, p, n, chunk], "dtype": "bfloat16",
-            "ms": ms, "plain_ms": plain_ms, "backward_plain_ms": backward_ms,
+            "ms": ms, "op_ms": op_ms, "op_dispatch_ms": op_ms - ms, **enqueue,
+            "plain_ms": plain_ms, "backward_plain_ms": backward_ms,
             **e}
 
 
@@ -3210,6 +3259,221 @@ def phase_remat(dev) -> dict:
     return res
 
 
+DRYRUN_CHILD = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention, ssd_scan
+from repro_torch.launch.dryrun import lower_cell
+from repro_torch.launch.mesh import make_dev_mesh
+arch, shape, mesh, batch, seq = sys.argv[1:4] + [int(a) for a in sys.argv[4:]]
+if mesh == "card":
+    # mesh (1, 1) at the card check's setting: B3/B4 on, remat on
+    cfg = dataclasses.replace(get_config(arch), flash_attention=True)
+    spec = dict(seq_len=seq, global_batch=batch, kind="train")
+    cells = [dict(cfg=cfg, spec=spec,
+                  mesh=make_dev_mesh(1, 1, device="cuda"))]
+else:
+    cells = [dict(multi_pod=m) for m in (False, True)
+             if mesh == "both" or m == (mesh == "multi")]
+recs = []
+for kw in cells:
+    n0 = flash_attention.launches + ssd_scan.launches
+    try:
+        rec = lower_cell(arch, shape, device="cuda", **kw)
+    except Exception as e:  # recorded as the cell's failure
+        rec = {"arch": arch, "shape": shape,
+               "multi_pod": kw.get("multi_pod", False),
+               "error": f"{type(e).__name__}: {e}"}
+    rec["kernel_launches"] = flash_attention.launches + ssd_scan.launches - n0
+    recs.append(rec)
+print(json.dumps(recs))
+"""
+
+
+def dryrun_summary(rec: dict) -> dict:
+    """A production record's per-card numbers, in GB and TFLOP."""
+    if "error" in rec:
+        return rec
+    mem = rec["memory"]
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "trace_s": rec["trace_s"], "tflops": rec["flops"] / 1e12,
+            "bytes_gb": rec["bytes_accessed"] / 1e9,
+            "collective_gb": {k: v / 1e9 for k, v in
+                              rec["collectives"].items()},
+            "collective_counts": rec["collective_counts"],
+            "collective_link_gb": {k: v / 1e9 for k, v in
+                                   rec["collective_links"].items()},
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "temp_gb": mem["temp_bytes"] / 1e9,
+            "flops_rawhlo": rec["flops_rawhlo"],
+            "kernel_launches": rec["kernel_launches"]}
+
+
+def dryrun_card_one(dev, arch: str, kernel, rec: dict) -> dict:
+    """``arch`` at mesh (1, 1) under the remat phase's setting: the trace's
+    record ``rec`` (made in a child process) against a warm-up train step,
+    a step timed and measured for peak memory from a reset, and a step
+    under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_config(arch), flash_attention=True)
+    traced_launches = rec["kernel_launches"]
+    predicted = (rec["memory"]["argument_bytes"]
+                 + rec["memory"]["temp_bytes"])
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)).requires_grad_(True)
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+
+    def batch(i):
+        toks = torch.from_numpy(data.local_batch(i)["tokens"]).to(dev)
+        return {"tokens": toks, "labels": toks}
+
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    step = make_train_step(model)
+    b1, b2, b3 = batch(0), batch(1), batch(2)
+    params, opt, _ = step(params, opt, b1)
+    del b1
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, b2)
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    with FlopCounterMode(display=False) as fc:
+        params, opt, m = step(params, opt, b3)
+    torch.cuda.synchronize(dev)
+    launches = kernel.launches        # the two real steps since the reset
+    real_flops = fc.get_total_flops()
+    roofline_s = max(rec["flops"] / PEAK_FLOPS_BF16,
+                     rec["bytes_accessed"] / HBM_BW)
+    peak_rel = abs(predicted - peak) / peak
+    flops_rel = abs(rec["flops"] - real_flops) / real_flops
+    checks = {"peak_within_tol": peak_rel <= DRYRUN_PEAK_RTOL,
+              "flops_within_tol": flops_rel <= DRYRUN_FLOPS_RTOL,
+              "trace_launched_nothing": traced_launches == 0,
+              "finite": math.isfinite(m["loss"].item())}
+    res = {"arch": arch, "kernel": kernel.__name__, **checks,
+           "trace_s": rec["trace_s"],
+           "argument_bytes": rec["memory"]["argument_bytes"],
+           "temp_bytes": rec["memory"]["temp_bytes"],
+           "predicted_peak_bytes": predicted,
+           "max_memory_allocated": peak, "peak_rel_diff": peak_rel,
+           "dryrun_flops": rec["flops"], "real_step_flops": real_flops,
+           "flops_rel_diff": flops_rel,
+           "dryrun_bytes": rec["bytes_accessed"],
+           "roofline_step_ms": roofline_s * 1e3,
+           "measured_step_ms": step_s * 1e3,
+           "roofline_fraction": roofline_s / step_s,
+           "launches": launches}
+    del model, params, opt, step, data, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun_traces() -> tuple[list[dict], dict]:
+    """Each training cell of DRYRUN_CELLS on each production mesh, each of
+    DRYRUN_CARD_ARCHS at mesh (1, 1), and each other cell on both meshes,
+    in a child process of its own (one intra-op thread: a trace computes
+    nothing), as many at once as the host has cores, the longest first
+    (training traces, the Mamba2 and MoE models' longest); a child's
+    failure is recorded as its cells' error.  Returns the production
+    records and the (1, 1) records by arch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    jobs = [(a, s, m) for a, s in reversed(DRYRUN_CELLS) if s == "train_4k"
+            for m in ("single", "multi")] + [
+        (a, "train", "card") for a in reversed(DRYRUN_CARD_ARCHS)] + [
+        (a, s, "both") for a, s in DRYRUN_CELLS if s != "train_4k"]
+    pending, running, done = list(jobs), [], {}
+    t0 = time.perf_counter()
+    while pending or running:
+        while pending and len(running) < (os.cpu_count() or 1):
+            job = pending.pop(0)
+            # output to files: a pipe left unread would stall the child
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            running.append((job, out, err, subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD, *job, str(TRAIN_BATCH),
+                 str(TRAIN_SEQ)], cwd=ROOT, env=env, stdout=out, stderr=err,
+                text=True)))
+        time.sleep(0.2)
+        for item in [r for r in running if r[3].poll() is not None
+                     or time.perf_counter() - t0 > 900]:
+            job, out, err, proc = item
+            running.remove(item)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.seek(0), err.seek(0)
+            lines = out.read().splitlines()
+            done[job] = (json.loads(lines[-1]) if proc.returncode == 0
+                         else [{"arch": job[0], "shape": job[1],
+                                "multi_pod": multi, "kernel_launches": 0,
+                                "error": f"exit {proc.returncode}",
+                                "stderr_tail": err.read()[-2000:]}
+                               for multi in (False, True)
+                               if job[2] in ("both", "card")
+                               or multi == (job[2] == "multi")][
+                                   :1 if job[2] == "card" else None])
+            out.close(), err.close()
+    records = [r for j in jobs if j[2] != "card" for r in done[j]]
+    return records, {j[0]: done[j][0] for j in jobs if j[2] == "card"}
+
+
+def phase_dryrun(dev) -> dict:
+    """The traces (``dryrun_traces``), then the (1, 1) predictions held
+    against real steps on the card (``dryrun_card_one``; after the children
+    have exited, so that they take no host time from the timed step).
+    Fails on any trace error, any launch during a trace, or a (1, 1) check
+    out of its bound."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+    t_phase = time.perf_counter()
+    records, traced = dryrun_traces()
+    traces_s = time.perf_counter() - t_phase
+    ok = len(records) == 2 * len(DRYRUN_CELLS)
+    for rec in records:
+        emit({"phase": "dryrun", "record": dryrun_summary(rec)})
+        ok = ok and "error" not in rec and rec["kernel_launches"] == 0
+    card = {}
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch in DRYRUN_CARD_ARCHS:
+        rec = traced.get(arch, {"error": "no record"})
+        if "error" in rec:
+            card[arch] = {"arch": arch, "error": rec["error"],
+                          "stderr_tail": rec.get("stderr_tail", "")}
+            emit({"phase": "dryrun", "mesh_1x1": card[arch]})
+            ok = False
+            continue
+        kernel = ssd_scan if arch == SSM_ARCH else flash_attention
+        card[arch] = dryrun_card_one(dev, arch, kernel, rec)
+        launches[kernel.__name__] += card[arch]["launches"]
+        emit({"phase": "dryrun", "mesh_1x1": card[arch]})
+        ok = ok and all(card[arch][k] for k in (
+            "peak_within_tol", "flops_within_tol", "trace_launched_nothing",
+            "finite"))
+    res = {"phase": "dryrun", "ok": ok, "cells": len(records),
+           "trace_s": {f"{r['arch']}/{r['shape']}/"
+                       f"{'multi' if r.get('multi_pod') else 'single'}":
+                       r.get("trace_s") for r in records},
+           "traces_wall_s": traces_s, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "peak_rtol": DRYRUN_PEAK_RTOL, "flops_rtol": DRYRUN_FLOPS_RTOL,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not ok:
+        raise SystemExit("dryrun phase failed")
+    return res
+
+
 def phase_train(dev) -> dict:
     """qwen2-1.5b at full width through TrainLoop with B3 in every layer's
     forward (``train_main_path``, the einsum route as reference, the
@@ -3278,6 +3542,17 @@ def flash_train_timing(dev, g: torch.Generator) -> dict:
     ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10, warmup=2)
     lse_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
                      reps=10, warmup=2)
+    # the same launch through the custom op (the dry-run's route): its
+    # dispatch cost apart from the kernel's, on the card's clock and on the
+    # host's (a dispatch shorter than the kernel hides in back-to-back
+    # launches)
+    def op():
+        return torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 0, 0,
+                                                         False)
+
+    op_ms = cuda_ms(op, reps=10, warmup=2)
+    enqueue = {"host_ms": host_ms(lambda: flash_attention(q, k, v), reps=10),
+             "op_host_ms": host_ms(op, reps=10)}
     out, lse = flash_attention(q, k, v, return_lse=True)
     exp, exp_lse = flash_attention_plain(q, k, v, return_lse=True)
     checks = {"out": errors(out, exp, "flash_attention.bfloat16"),
@@ -3297,7 +3572,8 @@ def flash_train_timing(dev, g: torch.Generator) -> dict:
                            "tol": FLASH_GRAD_BF16_TOL,
                            "ok": max(errs.values()) <= FLASH_GRAD_BF16_TOL}
     return {"shape": [B, S, S, K, G, hd], "dtype": "bfloat16",
-            "causal": True, "ms": ms, "lse_ms": lse_ms,
+            "causal": True, "ms": ms, "lse_ms": lse_ms, "op_ms": op_ms,
+            "op_dispatch_ms": op_ms - ms, **enqueue,
             "backward_plain_ms": backward_ms, **checks,
             "ok": all(c["ok"] for c in checks.values())}
 
@@ -3327,6 +3603,7 @@ def main() -> int:
     phase_zoo_reference(dev)
     phase_train_reference(dev)
     remat = phase_remat(dev)
+    dryrun = phase_dryrun(dev)
     train = phase_train(dev)
     moe_train = phase_moe_train(dev)
     ssm_train = phase_ssm_train(dev)
@@ -3352,9 +3629,11 @@ def main() -> int:
                 "wave_step_rows": wave["launches"],
                 "flash_attention": sum(r["launches"] for r in (
                     serve, train, moe_serve, moe_train, vlm))
-                + remat["launches"]["flash_attention"],
+                + remat["launches"]["flash_attention"]
+                + dryrun["launches"]["flash_attention"],
                 "ssd_scan": ssm["launches"] + ssm_train["launches"]
-                + remat["launches"]["ssd_scan"]}
+                + remat["launches"]["ssd_scan"]
+                + dryrun["launches"]["ssd_scan"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",

@@ -1,11 +1,13 @@
 """Checkpoint manager: interval policy, async save thread, retention,
-restore-or-init.
+restore-or-init with resharding.
 
 The PyTorch counterpart of ``src/repro/checkpoint/manager.py``.
 ``save`` copies the tree's tensors to host numpy arrays (off the card)
 before it hands the disk write to a background thread, so the training
 loop may update the tensors in place at once; it blocks only if a previous
-save is still in flight (bounded staleness of one).
+save is still in flight (bounded staleness of one).  ``restore_or_init``
+with ``shardings`` places each tensor of the tree on a ``DeviceMesh`` with
+``distribute_tensor``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from __future__ import annotations
 import threading
 from pathlib import Path
 from typing import Callable, Optional
+
+import torch
+from torch.distributed.tensor import distribute_tensor
 
 from .store import (latest_step, prune_old, restore_checkpoint,
                     save_checkpoint, to_numpy, tree_map)
@@ -78,15 +83,34 @@ class CheckpointManager:
             work()
 
     # -- restore ---------------------------------------------------------------
-    def restore_or_init(self, init_fn: Callable[[], object]):
+    def restore_or_init(self, init_fn: Callable[[], object], *,
+                        shardings=None):
         """Restore the latest step into the structure, types and devices of
-        ``init_fn()``'s tree, or return that tree.  Returns (step, tree)."""
+        ``init_fn()``'s tree, or return that tree.  Returns (step, tree).
+
+        ``shardings`` is a tree of the same structure whose leaves are
+        ``sharding.partition.NamedSharding`` (or None to leave a leaf as
+        it is): each restored or fresh tensor then goes through
+        ``distribute_tensor(t, mesh, placements)``."""
         like = init_fn()
         step, tree = restore_checkpoint(self.directory, like)
         if step is None:
-            return 0, like
+            step, tree = 0, like
+        if shardings is not None:
+            tree = _place(tree, shardings)
         return step, tree
 
     @property
     def latest(self) -> Optional[int]:
         return latest_step(self.directory)
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) if k in shardings else v
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    if shardings is None or not isinstance(tree, torch.Tensor):
+        return tree
+    return distribute_tensor(tree, shardings.mesh, shardings.placements)

@@ -131,3 +131,14 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def direct(*tensors) -> bool:
+    """Whether a launch may call its kernel directly and skip its custom
+    op's dispatch (tens of microseconds a call): plain tensors, and no
+    dispatch mode that watches the ops (``FlopCounterMode``,
+    ``FakeTensorMode``, the dry-run's cost analysis).  Fake tensors and
+    DTensors always go through the op."""
+    import torch
+    return (all(type(t) is torch.Tensor for t in tensors)
+            and not torch._C._len_torch_dispatch_stack())

@@ -23,16 +23,32 @@ as the JAX reference rounds them; in float32 with f32 products on the CUDA
 cores.  On a CPU tensor it runs the plain PyTorch version,
 :func:`flash_attention_plain`, the twin of the JAX package's blockwise
 reference (``repro.kernels.ref._flash_fwd_impl``).
+
+A launch on plain CUDA tensors calls the kernel directly; on fake tensors,
+DTensors or under a dispatch mode that watches the ops it goes through the
+custom op ``repro_torch::flash_attention_fwd`` (whose real implementation is
+the same launch).  Its fake
+implementation allocates ``out`` and ``lse`` without building or loading
+the kernel, its flop formula counts ``4 B H hd`` per unmasked (query, key)
+pair, and its DTensor sharding rule splits the batch or the KV heads, so a
+dry-run (``launch/dryrun.py``) traces it over fake CUDA tensors on a mesh
+and launches nothing.  DTensors on the CPU run the plain version per shard
+(``local_map``), and so does the plain backward of a DTensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map, register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -167,13 +183,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int], q_offset: int, want_lse: bool):
     """Kernel B3 on the current stream: ``(out, lse)``, ``lse`` None unless
-    ``want_lse``.  Adds one to ``flash_attention.launches``."""
+    ``want_lse``; through the custom op ``repro_torch::flash_attention_fwd``
+    unless ``_build.direct``.  On fake tensors (a dry-run's trace) the op
+    only allocates its outputs."""
     _check_args(q, k, v, window, q_offset)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    fns = {torch.float32: "repro_flash_fwd_f32",
-           torch.bfloat16: "repro_flash_fwd_bf16"}
-    if q.dtype not in fns:
+    if q.dtype not in _FNS:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
@@ -181,7 +197,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     B, S, K, G, hd = q.shape
-    T = k.shape[1]
     if hd % 8 or hd > MAX_HEAD_DIM:
         raise ValueError(f"kernel takes hd a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}, got {hd}")
@@ -194,22 +209,100 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"kernel takes a contiguous {name}")
+    launch = (_flash_attention_fwd_kernel if _build.direct(q, k, v)
+              else torch.ops.repro_torch.flash_attention_fwd)
+    out, lse = launch(q, k, v, causal, window or 0, q_offset, want_lse)
+    return out, (lse if want_lse else None)
+
+
+_FNS = {torch.float32: "repro_flash_fwd_f32",
+        torch.bfloat16: "repro_flash_fwd_bf16"}
+
+
+def _lse_shape(q_shape, want_lse: bool) -> tuple:
+    B, S, K, G, _ = q_shape
+    return (B, K, G, S) if want_lse else (0,)
+
+
+def _flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, causal: bool, window: int,
+                                q_offset: int, want_lse: bool):
+    """The launch of kernel B3 (``window`` 0 for none; ``lse`` empty unless
+    ``want_lse``).  Adds one to ``flash_attention.launches``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"kernel takes a 16-byte aligned {name}")
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
     out = torch.empty_like(q)
-    lse = (torch.empty((B, K, G, S), device=q.device, dtype=torch.float32)
-           if want_lse else None)
-    fn = getattr(_build.library(), fns[q.dtype])
+    lse = torch.empty(_lse_shape(q.shape, want_lse), device=q.device,
+                      dtype=torch.float32)
+    fn = getattr(_build.library(), _FNS[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if want_lse else None,
                  B, S, T, K, G, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
-                 int(causal), window or 0, q_offset, stream)
+                 int(causal), window, q_offset, stream)
     _build.check(err, "flash_attention launch")
     with _count_lock:
         flash_attention.launches += 1
     return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int, q_offset: int,
+                         want_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_attention_fwd_kernel(q, k, v, causal, window, q_offset,
+                                       want_lse)
+
+
+@_flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, q_offset, want_lse):
+    return (torch.empty_like(q),
+            q.new_empty(_lse_shape(q.shape, want_lse), dtype=torch.float32))
+
+
+def _lse_placements(pl) -> list:
+    """``q``'s placements (``[B,S,K,G,hd]``) as ``lse``'s (``[B,K,G,S]``)."""
+    return [Shard(1) if p.is_shard(2) else p for p in pl]
+
+
+def unmasked_pairs(S: int, T: int, causal: bool, window: int,
+                   q_offset: int) -> int:
+    """The (query, key) pairs the masks keep: key ``j < T`` with
+    ``j <= i + q_offset`` (causal) and ``j > i + q_offset - window``
+    (``window`` > 0)."""
+    pos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset,
+                 want_lse, *args, out_shape=None, **kwargs) -> int:
+    """``4 B H hd`` per unmasked pair (``Q K^T`` and ``P V``), as PERF.md's
+    bound counts B3's work."""
+    B, S, K, G, hd = q_shape
+    return 4 * B * K * G * hd * unmasked_pairs(S, k_shape[1], causal, window,
+                                               q_offset)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
+def _flash_sharding(q, k, v, causal, window, q_offset, want_lse):
+    """Per mesh dim: replicated, batch-sharded, or KV-head-sharded where
+    every mesh dim divides the KV heads (``out`` as ``q``; ``lse``
+    ``[B,K,G,S]``)."""
+    R = Replicate()
+    rest = [None] * 4
+    out = [([R, R], [R, R, R] + rest),
+           ([Shard(0), Shard(0)], [Shard(0)] * 3 + rest)]
+    if all(q.shape[2] % n == 0 for n in q.mesh.shape):
+        out.append(([Shard(2), Shard(1)], [Shard(2)] * 3 + rest))
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -233,9 +326,16 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout, causal=causal, window=window,
-            q_offset=q_offset)
+        bwd = functools.partial(flash_attention_backward, causal=causal,
+                                window=window, q_offset=q_offset)
+        if isinstance(q, DTensor):
+            # per shard of batch and KV heads (a dry-run's trace)
+            pl = list(q.placements)
+            bwd = local_map(bwd, out_placements=(pl, pl, pl),
+                            in_placements=(pl, pl, pl, pl, _lse_placements(pl),
+                                           pl),
+                            redistribute_inputs=True)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout)
         return dq, dk, dv, None, None, None
 
 
@@ -252,6 +352,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     without it unless asked.  Each kernel launch adds one to
     ``flash_attention.launches``.
     """
+    if isinstance(q, DTensor) and q.device.type == "cpu":
+        # the plain version per shard of batch and KV heads (a dry-run's
+        # trace on the CPU; on the card the custom op's sharding rule
+        # places the kernel)
+        pl = list(q.placements)
+        return local_map(
+            functools.partial(flash_attention, causal=causal, window=window,
+                              q_offset=q_offset, return_lse=return_lse),
+            out_placements=(pl, _lse_placements(pl)) if return_lse else pl,
+            in_placements=(pl, pl, pl), redistribute_inputs=True)(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         out, lse = _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -19,14 +19,29 @@ On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel in
 Under autograd the forward is the same, and the backward is autograd of the
 plain version recomputed from the inputs (:class:`_SSDScan`).
 :func:`ssd_chunk_ref` is the twin of ``repro.kernels.ref.ssd_chunk_ref``.
+
+A launch on plain CUDA tensors calls the kernel directly; on fake tensors,
+DTensors or under a dispatch mode that watches the ops it goes through the
+custom op ``repro_torch::ssd_scan_fwd`` (the same launch): its fake
+implementation allocates ``y`` and ``state`` without building or loading
+the kernel, its flop formula is ``FlopCounterMode``'s count of the plain
+version at the same shapes, and its DTensor sharding rule splits the batch
+or the heads, so a dry-run (``launch/dryrun.py``) traces it without
+launching (the models' Mamba2 layers reach it on each card's shard of
+batch and heads, ``Mamba2LM._per_shard``).
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
 from . import _build
 
@@ -128,14 +143,13 @@ def ssd_chunk_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
 def _launch(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
             C: torch.Tensor, chunk: int):
-    """Kernel B4 on the current stream: ``(y, state)``.  Adds one to
-    ``ssd_scan.launches``."""
+    """Kernel B4 on the current stream: ``(y, state)``; through the custom
+    op ``repro_torch::ssd_scan_fwd`` unless ``_build.direct``.  On fake
+    tensors (a dry-run's trace) the op only allocates its outputs."""
     _check_args(x, a, B, C, chunk)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    fns = {torch.float32: "repro_ssd_scan_f32",
-           torch.bfloat16: "repro_ssd_scan_bf16"}
-    if x.dtype not in fns:
+    if x.dtype not in _FNS:
         raise TypeError(f"kernel takes float32 or bfloat16 x, got {x.dtype}")
     if B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"B and C must have x's dtype {x.dtype}, got "
@@ -154,9 +168,23 @@ def _launch(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     for name, t in (("x", x), ("a", a), ("B", B), ("C", C)):
         if not t.is_contiguous():
             raise ValueError(f"kernel takes a contiguous {name}")
+    if _build.direct(x, a, B, C):
+        return _ssd_scan_fwd_kernel(x, a, B, C, chunk)
+    return torch.ops.repro_torch.ssd_scan_fwd(x, a, B, C, chunk)
+
+
+_FNS = {torch.float32: "repro_ssd_scan_f32",
+        torch.bfloat16: "repro_ssd_scan_bf16"}
+
+
+def _ssd_scan_fwd_kernel(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, chunk: int):
+    """The launch of kernel B4.  Adds one to ``ssd_scan.launches``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.library(), fns[x.dtype])
+    fn = getattr(_build.library(), _FNS[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -165,6 +193,50 @@ def _launch(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     with _count_lock:
         ssd_scan.launches += 1
     return y, state
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_fwd(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, chunk: int) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    return _ssd_scan_fwd_kernel(x, a, B, C, chunk)
+
+
+@_ssd_scan_fwd.register_fake
+def _(x, a, B, C, chunk):
+    b, s, h, p = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_flops(x_shape, B_shape, chunk) -> int:
+    with _disable_current_modes(), FlopCounterMode(display=False) as fc:
+        b, s, h, _ = x_shape
+        ssd_scan_plain(torch.empty(x_shape, device="meta"),
+                       torch.empty((b, s, h), device="meta"),
+                       torch.empty(B_shape, device="meta"),
+                       torch.empty(B_shape, device="meta"), chunk)
+    return fc.get_total_flops()
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _ssd_flops(x_shape, a_shape, B_shape, C_shape, chunk, *args,
+               out_shape=None, **kwargs) -> int:
+    """What ``FlopCounterMode`` counts of :func:`ssd_scan_plain` at the same
+    shapes (counted once per shape on meta tensors, outside any mode)."""
+    return _plain_flops(tuple(x_shape), tuple(B_shape), chunk)
+
+
+@register_sharding(torch.ops.repro_torch.ssd_scan_fwd.default)
+def _ssd_sharding(x, a, B, C, chunk):
+    """Per mesh dim: replicated, batch-sharded, or head-sharded (``B`` and
+    ``C`` are shared by all heads, so heads do not split them)."""
+    R = Replicate()
+    return [([R, R], [R, R, R, R, None]),
+            ([Shard(0), Shard(0)], [Shard(0)] * 4 + [None]),
+            ([Shard(2), Shard(1)], [Shard(2), Shard(2), R, R, None])]
 
 
 class _SSDScan(torch.autograd.Function):

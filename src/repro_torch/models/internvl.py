@@ -88,7 +88,7 @@ class InternVLModel(nn.Module):
         logits, _, kvs = self.lm.forward_embedded(x, *self._causal(x),
                                                   return_cache=True,
                                                   last_only=True)
-        cache = self.lm.init_cache(B, max_len, x.device)
+        cache = L.new_cache(self.lm.init_cache, B, max_len, x)
         W = cache["k"].shape[2]
         take = min(S, W)
         for i, (k, v) in enumerate(kvs):

@@ -18,9 +18,116 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import full as dtensor_full
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF, flash_attention
+from ..sharding import cache_shardings
+
+# ---------------------------------------------------------------------------
+# DTensor placements (the dry-run traces the models over DTensors; on a
+# plain tensor these helpers return it as it is)
+
+
+def replicate_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums reduced (an all-reduce over the mesh dims
+    where it is ``Partial``): a vocab-sharded embedding's rows, before a
+    nonlinear op that cannot take partial values."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        # the gradient arrives replicated, as the backward of a masked
+        # partial sum needs it
+        return settle_grad(t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements]))
+    return t
+
+
+def heads(t: torch.Tensor, n: int, hd: int, kv_heads: int) -> torch.Tensor:
+    """``t [..., n*hd]`` as ``[..., n, hd]``.  A DTensor sharded on its last
+    dim keeps that shard only over mesh dims that divide ``kv_heads`` (so
+    the shard stays on whole heads, and on whole KV groups when the query
+    heads split as ``[K, G]``); over the others it is gathered first."""
+    if isinstance(t, DTensor):
+        t = replicate_partial(t)
+        mesh = t.device_mesh
+        pl = [Replicate() if p.is_shard(t.dim() - 1) and kv_heads % mesh.size(i)
+              else p for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+class _SettleGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous and, on a DTensor, placed
+    as the forward value was (pending sums reduced).  A gradient that a
+    per-shard function gives back keeps that function's layout (an
+    einsum's permuted one) under a contiguous global shape, and DTensor's
+    backward can pick placements that a later view cannot split; either
+    would fail at the next view of it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = (t.placements if isinstance(t, DTensor) else None)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.placements is not None:
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if p.is_partial() else p for p in ctx.placements])
+        return g.contiguous()
+
+
+def settle_grad(t: torch.Tensor) -> torch.Tensor:
+    return _SettleGrad.apply(t) if t.requires_grad else t
+
+
+def _dense_grads(fn):
+    def wrapped(*args):
+        return fn(*(settle_grad(a) if isinstance(a, torch.Tensor) else a
+                    for a in args))
+    return wrapped
+
+
+def batch_placements(mesh, batch: int, heads: Optional[int] = None) -> list:
+    """Per mesh dim: dim 0 (the batch) over the data axes (``pod``,
+    ``data``) where their product divides ``batch``; dim 2 (the heads of
+    ``[B,S,K,...]``) over ``model`` where ``heads`` is given and ``model``
+    divides it; else replicated.  Pinned, so that a dry-run's per-card counts do not depend
+    on DTensor's propagation choices."""
+    names = mesh.mesh_dim_names
+    data = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    shard_batch = batch % math.prod(mesh.size(i) for i in data) == 0
+    out = []
+    for i, n in enumerate(names):
+        if i in data and shard_batch:
+            out.append(Shard(0))
+        elif n == "model" and heads is not None and heads % mesh.size(i) == 0:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def regroup(t: torch.Tensor, sizes, dim: int, placements) -> list:
+    """``torch.split(t, sizes, dim)``; on a DTensor, piece ``i`` placed as
+    ``placements[i]``.  The pieces' bounds need not fall on ``t``'s shard
+    bounds, so ``t`` is first gathered over the mesh dims that shard
+    ``dim`` (a collective), and each piece is re-sharded from there (a
+    local slice)."""
+    if not isinstance(t, DTensor):
+        return torch.split(t, sizes, dim)
+    dim %= t.dim()
+    mesh = t.device_mesh
+    t = replicate_partial(t).redistribute(mesh, [
+        Replicate() if p.is_shard(dim) else p for p in t.placements])
+    # slices rather than torch.split: split's sharding strategy differs
+    # between torch versions
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    return [t.narrow(dim, o, n).redistribute(mesh, pl)
+            for o, n, pl in zip(offsets, sizes, placements)]
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -113,11 +220,57 @@ def init_linear(d_in, d_out, dtype, generator, bias=False, scale=None) -> dict:
     return p
 
 
+def tp_input(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` placed for ``x @ w`` (``w`` ``[d_in, d_out]``) as Megatron
+    places it: replicated over the mesh dims that shard ``w``'s outputs
+    (column-parallel), sharded on its last dim over those that shard
+    ``w``'s inputs (row-parallel), replicated where ``w`` is and ``x`` is
+    sharded on its last dim (a gather of ``x``, not a partial sum of the
+    product); as it is elsewhere.  Left to itself, DTensor may keep ``x``
+    sharded on the batch over such a dim and gather the weight instead."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.dim() - 1
+    pl = [Replicate() if wp.is_shard(1) else Shard(last) if wp.is_shard(0)
+          else Replicate() if xp.is_shard(last) else xp
+          for xp, wp in zip(x.placements, w.placements)]
+    if pl == list(x.placements):
+        return x
+    return replicate_partial(x).redistribute(x.device_mesh, pl)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    x = tp_input(x, p["w"])
     y = x @ p["w"].to(x.dtype)
+    if isinstance(y, DTensor) and any(q.is_partial() for q in y.placements):
+        # row-parallel: the gradient arrives replicated, so the backward's
+        # products stay on this card's rows (a partial gradient would have
+        # DTensor gather the weight and run the whole product instead)
+        y = settle_grad(y)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def linear_split(p, x: torch.Tensor, sizes, placements) -> list:
+    """``torch.split(linear(p, x), sizes, -1)`` (no bias); on a DTensor,
+    piece ``i`` placed as ``placements[i]`` (per mesh dim: the batch's
+    shard, and a shard of the last dim where the piece splits over that
+    dim).  Each card computes its own columns of each piece.  Since the
+    pieces' bounds need not fall on the weight's shard bounds, one side is
+    gathered: the weight (then split, each piece's columns re-sharded)
+    where it has fewer bytes than the input (many tokens: training and
+    prefill), else the output (few tokens: a decode step)."""
+    if not isinstance(x, DTensor):
+        return torch.split(linear(p, x), sizes, -1)
+    w, last = p["w"], x.dim() - 1
+    tokens = x.to_local().numel() // x.shape[-1]
+    if w.shape[0] * w.element_size() < tokens * x.element_size():
+        wpl = [[Shard(1) if a.is_shard(last) else Replicate() for a in pl]
+               for pl in placements]
+        return [linear({"w": wi}, x).redistribute(x.device_mesh, pl)
+                for wi, pl in zip(regroup(w, sizes, 1, wpl), placements)]
+    return regroup(linear(p, x), sizes, -1, placements)
 
 
 def init_norm(d, dtype, device) -> dict:
@@ -184,8 +337,25 @@ def _sdpa(q, k, v, mask, *, use_kernel: bool = False, causal: bool = False,
     softmax weights rounded back before the second product.
     """
     S, T = q.shape[1], k.shape[1]
+    if isinstance(q, DTensor):
+        # batch over the data axes, KV heads over model where it divides
+        # them: B3's sharding rule, and the per-shard einsums' below
+        pl = batch_placements(q.device_mesh, q.shape[0], q.shape[2])
+        q, k, v = (t.redistribute(t.device_mesh, pl) for t in (q, k, v))
     if S > 1 and (use_kernel or (causal and S * T > FLASH_THRESHOLD)):
         return flash_attention(q, k, v, causal=causal, window=window)
+    if isinstance(q, DTensor):
+        # per shard of batch and KV heads (DTensor cannot split the
+        # einsums' merged batch dims)
+        mpl = ([Replicate() for _ in pl] if isinstance(mask, DTensor)
+               else None)
+        return local_map(_dense_grads(_sdpa_einsum), out_placements=pl,
+                         in_placements=(pl, pl, pl, mpl),
+                         redistribute_inputs=True)(q, k, v, mask)
+    return _sdpa_einsum(q, k, v, mask)
+
+
+def _sdpa_einsum(q, k, v, mask):
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
     logits = torch.where(mask[:, None, None] if mask.dim() == 3 else mask,
@@ -215,15 +385,15 @@ def attention(p, cfg, x, positions, mask, kv=None, *, use_kernel=False,
         # measurement-only path: QKV/O projections run, the O(S*T) mixing is
         # skipped, as in the JAX package
         qa = linear(p["wq"], x)
-        ka = linear(p["wk"], x).reshape(B, S, K, hd)
-        va = linear(p["wv"], x).reshape(B, S, K, hd)
+        ka = heads(linear(p["wk"], x), K, hd, K)
+        va = heads(linear(p["wv"], x), K, hd, K)
         return linear(p["wo"], qa * 0.001), (ka, va)
     G = H // K
-    q = linear(p["wq"], x).reshape(B, S, H, hd)
+    q = heads(linear(p["wq"], x), H, hd, K)
     q = apply_rope(q, positions, cfg.rope_theta) if cfg.rope_theta else q
     if kv is None:
-        k = linear(p["wk"], x).reshape(B, S, K, hd)
-        v = linear(p["wv"], x).reshape(B, S, K, hd)
+        k = heads(linear(p["wk"], x), K, hd, K)
+        v = heads(linear(p["wv"], x), K, hd, K)
         k = apply_rope(k, positions, cfg.rope_theta) if cfg.rope_theta else k
     else:
         k, v = kv
@@ -325,14 +495,67 @@ def moe(p, cfg, x, *, group_size: int = 512):
     # renormalize kept gates over the k choices (granite-style top-k softmax)
     denom = torch.sum(combine, dim=(2, 3), keepdim=True) + 1e-9
     combine = combine / denom
-    dispatch = (combine > 0).to(x.dtype)                        # [G,Gs,E,C]
+    out = _experts(combine, xg, p["wg"].to(x.dtype), p["wi"].to(x.dtype),
+                   p["wo"].to(x.dtype))
+    out = out.reshape(B, S, D)
+    return (settle_grad(out) if isinstance(out, DTensor) else out), aux
 
+
+def _dispatch_experts(combine, xg, wg, wi, wo):
+    """Dispatch ``xg [G,Gs,D]`` by ``combine [G,Gs,E,C]`` to the experts'
+    slots, run the experts' SwiGLU, and combine their outputs back."""
+    dispatch = (combine > 0).to(xg.dtype)                       # [G,Gs,E,C]
     xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)          # [E,G,C,D]
-    h = F.silu(torch.einsum("egcd,edf->egcf", xin, p["wg"].to(x.dtype)))
-    h = h * torch.einsum("egcd,edf->egcf", xin, p["wi"].to(x.dtype))
-    out_e = torch.einsum("egcf,efd->egcd", h, p["wo"].to(x.dtype))
-    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
-    return out.reshape(B, S, D), aux
+    h = F.silu(torch.einsum("egcd,edf->egcf", xin, wg))
+    h = h * torch.einsum("egcd,edf->egcf", xin, wi)
+    out_e = torch.einsum("egcf,efd->egcd", h, wo)
+    return torch.einsum("gsec,egcd->gsd", combine.to(xg.dtype), out_e)
+
+
+def _experts(combine, xg, wg, wi, wo):
+    """:func:`_dispatch_experts`; on DTensors, per shard.  Over a mesh dim
+    that shards the expert weights (EP), each card runs its experts on
+    every token of its group shard and the output is a partial sum; over a
+    batch dim (groups, or tokens within the one group of a decode step)
+    each card runs its tokens, and each slot holds one token, so the
+    per-shard dispatch is exact."""
+    if not isinstance(xg, DTensor):
+        return _dispatch_experts(combine, xg, wg, wi, wo)
+    cpl, xpl, wpl, opl, xgrad, wgrad = [], [], [], [], [], []
+    for w, c in zip(wg.placements, combine.placements):
+        batch = next((d for d in (0, 1) if c.is_shard(d)), None)
+        if w.is_shard(0):
+            cpl.append(Shard(2)), xpl.append(Replicate())
+            opl.append(Partial()), xgrad.append(Partial())
+            wgrad.append(w)
+        elif batch is not None:
+            cpl.append(Shard(batch)), xpl.append(Shard(batch))
+            opl.append(Shard(batch)), xgrad.append(Shard(batch))
+            wgrad.append(Partial())
+        else:
+            cpl.append(Replicate()), xpl.append(Replicate())
+            opl.append(Replicate()), xgrad.append(Replicate())
+            wgrad.append(Replicate())
+        wpl.append(w)
+    return local_map(_dispatch_experts, out_placements=opl,
+                     in_placements=(cpl, xpl, wpl, wpl, wpl),
+                     in_grad_placements=(cpl, xgrad, wgrad, wgrad, wgrad),
+                     redistribute_inputs=True)(combine, xg, wg, wi, wo)
+
+
+def new_cache(init_cache, B: int, max_len: int, like: torch.Tensor) -> dict:
+    """``init_cache(B, max_len, like.device)``.  For a DTensor ``like`` (a
+    dry-run's trace) each tensor is made as a DTensor under the decode
+    cache's shardings, without a global copy: zeros, and -1 for ``kpos``,
+    as ``init_cache`` fills them."""
+    if not isinstance(like, DTensor):
+        return init_cache(B, max_len, like.device)
+    meta = init_cache(B, max_len, "meta")
+    mesh = like.device_mesh
+    shard = cache_shardings(meta, mesh)
+    return {k: dtensor_full(v.shape, -1 if k == "kpos" else 0, dtype=v.dtype,
+                            device_mesh=mesh, placements=shard[k].placements)
+            if k in shard else v for k, v in meta.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -346,19 +569,70 @@ def init_embedding(vocab, d, dtype, generator) -> dict:
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
     # F.embedding rather than indexing: its gradient on the CPU sums the
     # rows in a fixed order (indexing's accumulates in a varying one)
-    return F.embedding(ids, p["e"])
+    return replicate_partial(F.embedding(ids, p["e"]))
 
 
 def unembed(p, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return (x @ p["e"].t().to(x.dtype)).to(dtype)
+    w = p["e"].t()
+    return (tp_input(x, w) @ w.to(x.dtype)).to(dtype)
+
+
+def _vocab_sharded(logits: DTensor) -> bool:
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    return any(p.is_shard(vdim) and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _picked_logit(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``logits[..., label]`` of a DTensor, per shard: each shard gathers the
+    labels that fall in its slice of the vocab, and the result is a
+    partial sum over the vocab's mesh dims (none if it is not sharded)."""
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    size, offset = logits.shape[-1], 0
+    for i, p in enumerate(logits.placements):
+        if p.is_shard(vdim):
+            size, off = Shard.local_shard_size_and_offset(
+                size, mesh.size(i), mesh.get_local_rank(i))
+            offset += off
+
+    def local(lg, lb):
+        idx = lb.long() - offset
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        got = torch.gather(lg, -1, torch.where(ok, idx, 0)[..., None])[..., 0]
+        return torch.where(ok, got, 0.0)
+
+    lpl = [Partial() if p.is_shard(vdim) else p for p in logits.placements]
+    bpl = [Replicate() if p.is_shard(vdim) else p for p in logits.placements]
+    return local_map(local, out_placements=lpl,
+                     in_placements=(list(logits.placements), bpl),
+                     redistribute_inputs=True)(logits, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross entropy in f32; with ``mask``, the masked mean."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0] - lse
+    logits = replicate_partial(logits.float())
+    if not isinstance(logits, DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None].long())
+    elif _vocab_sharded(logits):
+        # vocab-parallel: the max, the sum of exponentials and the picked
+        # logit reduce over the shards ([B,S] all-reduces), and the logits
+        # are never gathered
+        m = replicate_partial(logits.detach().amax(-1, keepdim=True))
+        lse = torch.log(replicate_partial(
+            torch.sum(torch.exp(logits - m), dim=-1))) + m[..., 0]
+        picked = replicate_partial(_picked_logit(logits, labels))[..., None]
+    else:
+        # a shard of the vocab over mesh dims of size 1 is the whole vocab
+        # (no data moves); the gather runs per shard, since DTensor's own
+        # gather backward makes its zeros at the global shape on each card
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_shard(logits.dim() - 1) else p
+            for p in logits.placements])
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = _picked_logit(logits, labels)[..., None]
+    ll = picked[..., 0] - lse
     loss = -ll
     if mask is not None:
         return torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), 1)

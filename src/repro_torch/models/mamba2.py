@@ -16,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.ssd_scan import segsum, ssd_scan
 from . import layers as L
@@ -92,20 +94,112 @@ class Mamba2LM(L.TreeLM):
         return self.load(params, layers)
 
     # -- block ------------------------------------------------------------------
-    def _mix_in(self, lp, x):
-        """in_proj and split: z, xBC (before the conv), dt."""
-        zxbcdt = L.linear(lp["in_proj"], x)
-        return torch.split(zxbcdt, [self.d_inner, self.conv_dim, self.nheads],
-                           dim=-1)
+    # A layer is in_proj (z | x | B C | dt), the depthwise conv and SSD over
+    # whole heads (``_scan``, ``_step``), then the gated norm and out_proj.
+    # On DTensors the heads shard over ``model`` where it divides them
+    # (``_head_placements``): in_proj's z, x and dt columns and out_proj's
+    # rows are tensor-parallel, and ``_scan``/``_step`` run per shard of
+    # batch and heads (``local_map``), with B and C, which every head
+    # shares, replicated.
+    def _head_placements(self, x):
+        """For a DTensor ``x [B,S,...]``: the placements of the layer's
+        per-head activations ``[B,S,C]`` (batch over the data axes, channels
+        over ``model`` where it divides the heads), and of B and C."""
+        act = L.batch_placements(x.device_mesh, x.shape[0], self.nheads)
+        shared = [Replicate() if p.is_shard(2) else p for p in act]
+        return act, shared
 
-    def _mix_out(self, lp, x, xh, y, z):
-        """The skip term ``D x``, the gated norm and out_proj, plus the
-        residual."""
+    def _mix_in(self, lp, x):
+        """in_proj and split: z, x, B C (before the conv), dt."""
+        di, n, h = self.d_inner, self.cfg.ssm_state, self.nheads
+        if not isinstance(x, DTensor):
+            z, xBC, dt = torch.split(L.linear(lp["in_proj"], x),
+                                     [di, self.conv_dim, h], dim=-1)
+            return z, xBC[..., :di], xBC[..., di:], dt
+        act, shared = self._head_placements(x)
+        return L.linear_split(lp["in_proj"], x, [di, di, 2 * n, h],
+                              [act, act, shared, act])
+
+    def _conv_params(self, lp, x):
+        """``conv_w``, ``conv_b`` as ``(w_x, b_x, w_BC, b_BC)``."""
+        di, n = self.d_inner, self.cfg.ssm_state
+        if not isinstance(x, DTensor):
+            w, b = lp["conv_w"], lp["conv_b"]
+            return w[:, :di], b[:di], w[:, di:], b[di:]
+        act, _ = self._head_placements(x)
+        heads = [Shard(1) if p.is_shard(2) else Replicate() for p in act]
+        rep = [Replicate()] * len(act)
+        wx, wbc = L.regroup(lp["conv_w"], [di, 2 * n], 1, [heads, rep])
+        bx, bbc = L.regroup(lp["conv_b"], [di, 2 * n], 0,
+                            [[Shard(0) if p.is_shard(1) else p for p in heads],
+                             rep])
+        return wx, bx, wbc, bbc
+
+    def _per_shard(self, fn, x, acts, outs, head_weights, shared_weights):
+        """``fn(*acts, *head_weights, *shared_weights)`` on each card's
+        shard of batch and heads.  ``acts`` are ``(tensor, role)`` with role
+        ``"heads"`` (sharded as the per-head activations, dim 2 of
+        ``[B,S,C]``), ``"state"`` (dim 1 of ``[B,h,p,n]``) or ``"shared"``
+        (B and C); ``head_weights`` split over heads on their last dim,
+        ``shared_weights`` do not.  ``outs`` are the outputs' roles."""
+        act, shared = self._head_placements(x)
+
+        def place(role):
+            if role == "shared":
+                return shared
+            if role == "state":
+                return [Shard(1) if p.is_shard(2) else p for p in act]
+            return act
+
+        def grad(role):
+            # B and C feed every head: each card's gradient is its heads'
+            # share of the sum
+            return ([Partial() if p.is_shard(2) else p for p in act]
+                    if role == "shared" else place(role))
+
+        weights = (*head_weights, *shared_weights)
+        wpl, wgrad = [], []
+        for i, w in enumerate(weights):
+            split = i < len(head_weights)
+            pl = [Shard(w.dim() - 1) if p.is_shard(2) and split
+                  else Replicate() for p in act]
+            wpl.append(pl)
+            # weights' gradients: partial sums over the batch's mesh dims,
+            # and over the heads' where the weight is shared by all heads
+            wgrad.append([Partial() if p.is_shard(0) or (
+                p.is_shard(2) and not split) else q
+                for p, q in zip(act, pl)])
+        return local_map(
+            fn, out_placements=tuple(place(r) for r in outs),
+            in_placements=tuple(place(r) for _, r in acts) + tuple(wpl),
+            in_grad_placements=(tuple(grad(r) for _, r in acts)
+                                + tuple(wgrad)),
+            redistribute_inputs=True)(*(t for t, _ in acts), *weights)
+
+    def _scan(self, xs, bc, dt, wx, bx, dt_bias, A_log, D, wbc, bbc):
+        """Conv and SSD over whole heads, plus the skip ``D x``: ``xs``
+        ``[B,S,hp]`` (any number of heads), ``bc`` ``[B,S,2n]``, ``dt``
+        ``[B,S,h]``; returns ``y [B,S,hp]`` and the final state (f32)."""
         cfg = self.cfg
-        Bsz, S = x.shape[:2]
-        y = y + xh * lp["D"].to(x.dtype)[:, None]
-        y = y.reshape(Bsz, S, self.d_inner)
-        y = L.rms_norm(lp["norm"], y * F.silu(z), cfg.norm_eps)
+        Bsz, S, di = xs.shape
+        n = cfg.ssm_state
+        dtype = xs.dtype
+        xBC = F.silu(causal_conv(torch.cat([xs, bc], -1),
+                                 torch.cat([wx, wbc], -1).to(dtype),
+                                 torch.cat([bx, bbc], -1).to(dtype)))
+        xs, Bm, Cm = torch.split(xBC, [di, n, n], dim=-1)
+        dt = F.softplus(dt.float() + dt_bias)                     # [B,S,h]
+        A = -torch.exp(A_log)                                     # [h]
+        a = (dt * A).float()                                      # log-decay
+        xh = xs.reshape(Bsz, S, -1, self.headdim)
+        y, hlast = ssd_chunked(xh * dt.to(dtype)[..., None], a,
+                               Bm.to(dtype), Cm.to(dtype), cfg.ssm_chunk)
+        y = y + xh * D.to(dtype)[:, None]
+        return y.reshape(Bsz, S, di), hlast
+
+    def _mix_out(self, lp, x, y, z):
+        """The gated norm and out_proj, plus the residual."""
+        y = L.rms_norm(lp["norm"], y * F.silu(z), self.cfg.norm_eps)
         return x + L.linear(lp["out_proj"], y)
 
     def layer(self, lp, x):
@@ -113,48 +207,74 @@ class Mamba2LM(L.TreeLM):
         the conv input's last ``CONV_WIDTH - 1`` steps and the SSD's final
         state (f32), which prime the decode cache."""
         cfg = self.cfg
-        Bsz, S, _ = x.shape
-        di, n, h = self.d_inner, cfg.ssm_state, self.nheads
         hin = L.rms_norm(lp["ln"], x, cfg.norm_eps)
-        z, xBC, dt = self._mix_in(lp, hin)
-        # a copy: a view would keep each layer's whole in_proj output alive
-        # until prefill stacks the cache
-        conv_tail = xBC[:, -(CONV_WIDTH - 1):, :].clone()
-        xBC = F.silu(causal_conv(xBC, lp["conv_w"].to(x.dtype),
-                                 lp["conv_b"].to(x.dtype)))
-        xs, Bm, Cm = torch.split(xBC, [di, n, n], dim=-1)
-        dt = F.softplus(dt.float() + lp["dt_bias"])               # [B,S,h]
-        A = -torch.exp(lp["A_log"])                               # [h]
-        a = (dt * A).float()                                      # log-decay
-        xh = xs.reshape(Bsz, S, h, self.headdim)
-        y, hlast = ssd_chunked(xh * dt.to(x.dtype)[..., None], a,
-                               Bm.to(x.dtype), Cm.to(x.dtype), cfg.ssm_chunk)
-        return self._mix_out(lp, x, xh, y, z), conv_tail, hlast
+        z, xs, bc, dt = self._mix_in(lp, hin)
+        # a copy (cat): a view would keep each layer's whole in_proj output
+        # alive until prefill stacks the cache
+        conv_tail = torch.cat([xs[:, -(CONV_WIDTH - 1):],
+                               bc[:, -(CONV_WIDTH - 1):]], -1)
+        wx, bx, wbc, bbc = self._conv_params(lp, x)
+        hw = (wx, bx, lp["dt_bias"], lp["A_log"], lp["D"])
+        if isinstance(x, DTensor):
+            y, hlast = self._per_shard(
+                self._scan, x, [(xs, "heads"), (bc, "shared"), (dt, "heads")],
+                ("heads", "state"), hw, (wbc, bbc))
+        else:
+            y, hlast = self._scan(xs, bc, dt, *hw, wbc, bbc)
+        return self._mix_out(lp, x, y, z), conv_tail, hlast
+
+    def _step(self, cx, cbc, xs, bc, dt, ssm_st, wx, bx, dt_bias, A_log, D,
+              wbc, bbc):
+        """The recurrent update for one token over whole heads: conv window
+        ``cx [B,W-1,hp]``, ``cbc [B,W-1,2n]``, the token's ``xs [B,1,hp]``,
+        ``bc [B,1,2n]``, ``dt [B,1,h]`` and the state ``[B,h,p,n]``.
+        Returns ``y [B,1,hp]``, the new windows and the new state."""
+        Bsz, _, di = xs.shape
+        n = self.cfg.ssm_state
+        dtype = xs.dtype
+        hist = torch.cat([torch.cat([cx, cbc], -1),
+                          torch.cat([xs, bc], -1)], dim=1)        # [B,W,C]
+        w = torch.cat([wx, wbc], -1).to(dtype)
+        conv_out = (torch.einsum("bwc,wc->bc", hist, w)
+                    + torch.cat([bx, bbc], -1).to(dtype))
+        xBC1 = F.silu(conv_out)[:, None]
+        xs, Bm, Cm = torch.split(xBC1, [di, n, n], dim=-1)
+        dtv = F.softplus(dt[:, 0].float() + dt_bias)              # [B,h]
+        A = -torch.exp(A_log)
+        decay = torch.exp(dtv * A)                                # [B,h]
+        xh = xs[:, 0].reshape(Bsz, -1, self.headdim)
+        dx = xh * dtv.to(dtype)[..., None]                        # [B,h,p]
+        ssm_new = (decay.to(dtype)[..., None, None] * ssm_st
+                   + torch.einsum("bhp,bn->bhpn", dx, Bm[:, 0]))
+        y = torch.einsum("bhpn,bn->bhp", ssm_new, Cm[:, 0])
+        y = (y + xh * D.to(dtype)[:, None]).reshape(Bsz, 1, di)
+        return (y, hist[:, 1:, :di].contiguous(),
+                hist[:, 1:, di:].contiguous(), ssm_new)
 
     def decode_layer(self, lp, x, conv_st, ssm_st):
         """One layer for one token ``x [B,1,D]``: the recurrent update in the
         activation dtype.  Returns the output, the new conv window and the
         new state."""
         cfg = self.cfg
-        B = x.shape[0]
-        di, n, h = self.d_inner, cfg.ssm_state, self.nheads
+        di, n = self.d_inner, cfg.ssm_state
         hin = L.rms_norm(lp["ln"], x, cfg.norm_eps)
-        z, xBC, dt = self._mix_in(lp, hin)                        # [B,1,*]
-        hist = torch.cat([conv_st, xBC], dim=1)                   # [B,W,convdim]
-        w = lp["conv_w"].to(x.dtype)
-        conv_out = torch.einsum("bwc,wc->bc", hist, w) + lp["conv_b"].to(x.dtype)
-        xBC1 = F.silu(conv_out)[:, None]
-        xs, Bm, Cm = torch.split(xBC1, [di, n, n], dim=-1)
-        dtv = F.softplus(dt[:, 0].float() + lp["dt_bias"])        # [B,h]
-        A = -torch.exp(lp["A_log"])
-        decay = torch.exp(dtv * A)                                # [B,h]
-        xh = xs[:, 0].reshape(B, h, self.headdim)
-        dx = xh * dtv.to(x.dtype)[..., None]                      # [B,h,p]
-        ssm_new = (decay.to(x.dtype)[..., None, None] * ssm_st
-                   + torch.einsum("bhp,bn->bhpn", dx, Bm[:, 0]))
-        y = torch.einsum("bhpn,bn->bhp", ssm_new, Cm[:, 0])
-        out = self._mix_out(lp, x, xh[:, None], y[:, None], z)
-        return out, hist[:, 1:], ssm_new
+        z, xs, bc, dt = self._mix_in(lp, hin)                     # [B,1,*]
+        wx, bx, wbc, bbc = self._conv_params(lp, x)
+        hw = (wx, bx, lp["dt_bias"], lp["A_log"], lp["D"])
+        if isinstance(x, DTensor):
+            act, shared = self._head_placements(x)
+            cx, cbc = L.regroup(conv_st, [di, 2 * n], -1, [act, shared])
+            y, nx, nbc, ssm_new = self._per_shard(
+                self._step, x,
+                [(cx, "heads"), (cbc, "shared"), (xs, "heads"),
+                 (bc, "shared"), (dt, "heads"), (ssm_st, "state")],
+                ("heads", "heads", "shared", "state"), hw, (wbc, bbc))
+        else:
+            y, nx, nbc, ssm_new = self._step(
+                conv_st[..., :di], conv_st[..., di:], xs, bc, dt, ssm_st,
+                *hw, wbc, bbc)
+        out = self._mix_out(lp, x, y, z)
+        return out, torch.cat([nx, nbc], -1), ssm_new
 
     # -- forward ------------------------------------------------------------------
     def forward(self, ids):

@@ -26,6 +26,15 @@ def _check_family(cfg: ArchConfig) -> None:
                          f"not {cfg.family}")
 
 
+def _fill_ring(dst: torch.Tensor, src: torch.Tensor, shift: int) -> None:
+    """``dst[:, (shift + t) % W] = src[:, t]`` for the ``take`` entries of
+    ``src``, as two slice copies."""
+    take = src.shape[1]
+    dst[:, shift:take] = src[:, :take - shift]
+    if shift:
+        dst[:, :shift] = src[:, take - shift:]
+
+
 class DecoderLM(L.TreeLM):
     """Build with ``DecoderLM(cfg)``, then give it weights: :meth:`init`
     draws them from a generator, :meth:`load` takes the JAX package's
@@ -133,16 +142,19 @@ class DecoderLM(L.TreeLM):
         """Run the full prompt, return (last-token logits, primed cache)."""
         B, S = ids.shape
         logits, _, kvs = self.forward(ids, return_cache=True, last_only=True)
-        cache = self.init_cache(B, max_len, ids.device)
+        cache = L.new_cache(self.init_cache, B, max_len, ids)
         W = cache["k"].shape[2]
         take = min(S, W)
-        # position p lives in ring slot p % W, the invariant decode_step keeps
-        keep_pos = torch.arange(S - take, S, device=ids.device)
-        slots = keep_pos % W
+        # position p lives in ring slot p % W, the invariant decode_step
+        # keeps: the kept positions fill slots 0..take from slot
+        # (S - take) % W on, wrapping (only when take == W)
+        shift = (S - take) % W
+        keep_pos = torch.arange(S - take, S, dtype=torch.int32,
+                                device=ids.device)
         for i, (k, v) in enumerate(kvs):
-            cache["k"][i][:, slots] = k[:, S - take:]
-            cache["v"][i][:, slots] = v[:, S - take:]
-        cache["kpos"][slots] = keep_pos.to(torch.int32)
+            for dst, src in ((cache["k"][i], k), (cache["v"][i], v)):
+                _fill_ring(dst, src[:, S - take:], shift)
+        _fill_ring(cache["kpos"][None], keep_pos[None], shift)
         cache["pos"] = S
         return logits[:, -1], cache
 
@@ -173,10 +185,10 @@ class DecoderLM(L.TreeLM):
             k_l, v_l = cache["k"][i], cache["v"][i]
             h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
             attn = lp["attn"]
-            q = L.linear(attn["wq"], h).reshape(B, 1, H, hd)
+            q = L.heads(L.linear(attn["wq"], h), H, hd, K)
             q = L.apply_rope(q, positions, cfg.rope_theta) if cfg.rope_theta else q
-            kn = L.linear(attn["wk"], h).reshape(B, 1, K, hd)
-            vn = L.linear(attn["wv"], h).reshape(B, 1, K, hd)
+            kn = L.heads(L.linear(attn["wk"], h), K, hd, K)
+            vn = L.heads(L.linear(attn["wv"], h), K, hd, K)
             kn = L.apply_rope(kn, positions, cfg.rope_theta) if cfg.rope_theta else kn
             k_l[:, slot] = kn[:, 0]
             v_l[:, slot] = vn[:, 0]

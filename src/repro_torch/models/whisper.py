@@ -115,8 +115,8 @@ class WhisperModel(nn.Module):
         cfg = self.cfg
         B, F = enc_out.shape[:2]
         K, hd = cfg.num_kv_heads, cfg.hd
-        ek = L.linear(lp["xattn"]["wk"], enc_out).reshape(B, F, K, hd)
-        ev = L.linear(lp["xattn"]["wv"], enc_out).reshape(B, F, K, hd)
+        ek = L.heads(L.linear(lp["xattn"]["wk"], enc_out), K, hd, K)
+        ev = L.heads(L.linear(lp["xattn"]["wv"], enc_out), K, hd, K)
         return ek, ev
 
     def _head(self, x):
@@ -199,9 +199,9 @@ class WhisperModel(nn.Module):
             k_l, v_l = cache["k"][i], cache["v"][i]
             h = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
             attn = lp["attn"]
-            q = L.linear(attn["wq"], h).reshape(B, 1, H, hd)
-            k_l[:, pos] = L.linear(attn["wk"], h).reshape(B, K, hd)
-            v_l[:, pos] = L.linear(attn["wv"], h).reshape(B, K, hd)
+            q = L.heads(L.linear(attn["wq"], h), H, hd, K)
+            k_l[:, pos] = L.heads(L.linear(attn["wk"], h), K, hd, K)[:, 0]
+            v_l[:, pos] = L.heads(L.linear(attn["wv"], h), K, hd, K)[:, 0]
             o = L._sdpa(q.reshape(B, 1, K, H // K, hd), k_l, v_l, mask)
             x = x + L.linear(attn["wo"], o.reshape(B, 1, H * hd))
             # cross attention against the (static) encoder output

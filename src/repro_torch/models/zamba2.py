@@ -121,7 +121,7 @@ class Zamba2LM(L.TreeLM):
         cfg = self.cfg
         B, S = ids.shape
         x, kvs, convs, ssms = self._prefill_layers(ids)
-        cache = self.init_cache(B, max_len, ids.device)
+        cache = L.new_cache(self.init_cache, B, max_len, ids)
         cache["k"][:, :, :S] = torch.stack([k for k, _ in kvs])
         cache["v"][:, :, :S] = torch.stack([v for _, v in kvs])
         cache["kpos"][:S] = torch.arange(S, dtype=torch.int32,
@@ -150,10 +150,10 @@ class Zamba2LM(L.TreeLM):
         for gi in range(self.groups):
             k_g, v_g = cache["k"][gi], cache["v"][gi]
             h = L.rms_norm(sp["ln1"], x, cfg.norm_eps)
-            q = L.linear(attn["wq"], h).reshape(B, 1, H, hd)
+            q = L.heads(L.linear(attn["wq"], h), H, hd, K)
             q = L.apply_rope(q, positions, cfg.rope_theta)
-            kn = L.linear(attn["wk"], h).reshape(B, 1, K, hd)
-            vn = L.linear(attn["wv"], h).reshape(B, 1, K, hd)
+            kn = L.heads(L.linear(attn["wk"], h), K, hd, K)
+            vn = L.heads(L.linear(attn["wv"], h), K, hd, K)
             kn = L.apply_rope(kn, positions, cfg.rope_theta)
             k_g[:, pos] = kn[:, 0]
             v_g[:, pos] = vn[:, 0]

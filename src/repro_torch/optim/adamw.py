@@ -6,12 +6,22 @@ clip, and the grad norm returned.  Where the JAX version returns new trees,
 this one updates the parameters and the moments in place, one tensor at a
 time, so a step holds no second copy of the model (25 GB of parameters,
 gradients and moments at qwen2-1.5b's full width).
+
+``zero1_shardings`` gives the moments ZeRO-1 placements: each
+data-parallel rank keeps only its shard of ``m`` and ``v``.  On DTensor
+parameters the in-place update then reduce-scatters the gradients into the
+moments' shards and all-gathers the update into the parameters.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+from repro_torch.sharding.partition import NamedSharding, axis_size, data_axes
+from repro_torch.sharding.rules import param_shardings
 
 
 def adamw_init(params: dict) -> dict:
@@ -45,3 +55,52 @@ def adamw_update(params: dict, grads: dict, state: dict, *, lr=3e-4, b1=0.9,
         delta = (m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * pf
         p.copy_((pf - lr * delta).to(p.dtype))
     return params, {"m": state["m"], "v": state["v"], "step": step}, gn
+
+
+_STACKED = re.compile(r"(.*?\b(?:layers|enc|dec))\.(\d+)\.")
+
+
+def _stack_depths(names) -> dict:
+    """``{stack prefix: layers}`` of per-layer names (``layers.3.attn...``,
+    Whisper's ``enc.0...`` and ``dec.0...``, InternVL's ``lm.layers...``)."""
+    depth: dict = {}
+    for name in names:
+        m = _STACKED.match(name)
+        if m:
+            depth[m.group(1)] = max(depth.get(m.group(1), 0),
+                                    int(m.group(2)) + 1)
+    return depth
+
+
+def zero1_shardings(params: dict, mesh) -> dict:
+    """Shardings for the optimizer state: params' TP sharding PLUS data-axis
+    sharding on the largest still-unsharded divisible dim (ZeRO-1).
+
+    The reference's stacked ``[L, ...]`` moments count the layer axis as a
+    candidate (first, so it wins ties).  Where it would win, the reference
+    spreads whole layers over the data ranks, which one tree per layer
+    cannot express: such a per-layer moment stays unsharded over data, so
+    each spec equals the reference's without its leading entry.  The
+    port's ``step`` is a Python int; its replicated entry mirrors the
+    reference's."""
+    pshard = param_shardings(params, mesh)
+    dp = data_axes(mesh)
+    dp_size = axis_size(mesh, dp)
+    depths = _stack_depths(params)
+
+    def one(name, shape, ns):
+        spec = list(ns.spec) + [None] * (len(shape) - len(ns.spec))
+        # choose the largest unsharded dim divisible by the data axes
+        best, best_dim = -1, None
+        m = _STACKED.match(name)
+        if m and depths[m.group(1)] % dp_size == 0:
+            best, best_dim = depths[m.group(1)], "layers"
+        for i, (dim, s) in enumerate(zip(shape, spec)):
+            if s is None and dim % dp_size == 0 and dim > best:
+                best, best_dim = dim, i
+        if best_dim not in (None, "layers") and dp:
+            spec[best_dim] = dp if len(dp) > 1 else dp[0]
+        return NamedSharding(mesh, tuple(spec))
+
+    moments = {k: one(k, tuple(p.shape), pshard[k]) for k, p in params.items()}
+    return {"m": moments, "v": moments, "step": NamedSharding(mesh, ())}

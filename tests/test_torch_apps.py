@@ -29,6 +29,7 @@ from repro_torch.apps import NBody, WaveSim, body_energies, run_rsim
 from repro_torch.apps import nbody as port_nbody
 from repro_torch.apps import wavesim as port_wavesim
 from repro_torch.core import Runtime
+from torch_parity import keep_reference_ids  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 QUIET = dict(retransmit_timeout=60.0)

@@ -25,6 +25,7 @@ import torch
 
 import repro.core as ref_core
 import repro_torch.core as port_core
+from torch_parity import keep_reference_ids  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -39,6 +39,7 @@ from repro_torch.core.faults import (InjectedCrash, NodeFailure,
                                      TransportError, run_with_restarts)
 from repro_torch.core.instruction_graph import Instruction, InstructionType
 from repro_torch.core.region import Region
+from torch_parity import keep_reference_ids  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 

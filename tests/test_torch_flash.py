@@ -18,6 +18,7 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_tpu
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from torch_parity import keep_reference_ids  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

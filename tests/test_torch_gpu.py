@@ -964,3 +964,124 @@ def test_admission_cap_of_one_on_exchanging_windows_on_card(cuda, reads):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(want, np.arange(64) + 2.0)
     assert all(v == 0 for counts in inflight for v in counts.values())
+
+
+# -- the kernels as custom ops, and the dry-run over fake CUDA tensors --------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want_lse", [False, True])
+def test_flash_custom_op_matches_plain(cuda, dtype, want_lse):
+    """``repro_torch::flash_attention_fwd`` called as an op launches B3 once,
+    within FLASH_TOL of the plain version (lse within 1e-4), with the
+    shapes of its fake implementation."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q = _randn(2, 200, 2, 6, 128, seed=50).to(cuda, dtype)
+    k = _randn(2, 200, 2, 128, seed=51).to(cuda, dtype)
+    v = _randn(2, 200, 2, 128, seed=52).to(cuda, dtype)
+    n0 = flash_attention.launches
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 32, 0,
+                                                         want_lse)
+    assert flash_attention.launches == n0 + 1
+    exp, exp_lse = flash_attention_plain(q, k, v, causal=True, window=32,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), exp.float(), **FLASH_TOL[dtype])
+    if want_lse:
+        torch.testing.assert_close(lse, exp_lse, atol=1e-4, rtol=1e-4)
+    else:
+        assert lse.numel() == 0
+    with FakeTensorMode() as mode:
+        fo, fl = torch.ops.repro_torch.flash_attention_fwd(
+            *(mode.from_tensor(t) for t in (q, k, v)), True, 32, 0, want_lse)
+    assert flash_attention.launches == n0 + 1
+    assert (fo.shape, fo.dtype, fl.shape) == (out.shape, out.dtype, lse.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_custom_op_matches_plain(cuda, dtype):
+    """``repro_torch::ssd_scan_fwd`` called as an op launches B4 once, within
+    the tolerances of ``test_ssd_kernel_matches_plain``."""
+    x, a, B, C = _ssd_inputs(2, 256, 4, 64, 128, dtype, cuda, seed=53)
+    n0 = ssd_scan.launches
+    y, st = torch.ops.repro_torch.ssd_scan_fwd(x, a, B, C, 64)
+    assert ssd_scan.launches == n0 + 1
+    ye, ste = ssd_scan_plain(x, a, B, C, 64)
+    torch.testing.assert_close(st, ste, atol=2e-4, rtol=2e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ye, atol=2e-4, rtol=2e-4)
+    else:
+        scale = ssd_scan_plain(x.float().abs(), a, B.float().abs(),
+                               C.float().abs(), 64)[0]
+        assert ((y.float() - ye.float()).abs() <= 1.2e-2 * scale).all()
+
+
+def test_direct_launches_equal_custom_op_launches(cuda):
+    """Plain CUDA tensors launch B3 and B4 directly, bit for bit what the
+    custom ops give, one launch each; under ``FlopCounterMode`` the same
+    calls go through the ops and are counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+    q = _randn(2, 200, 2, 6, 128, seed=54).to(cuda, torch.bfloat16)
+    k = _randn(2, 200, 2, 128, seed=55).to(cuda, torch.bfloat16)
+    v = _randn(2, 200, 2, 128, seed=56).to(cuda, torch.bfloat16)
+    x, a, B, C = _ssd_inputs(2, 256, 4, 64, 128, torch.bfloat16, cuda,
+                             seed=57)
+    n0, m0 = flash_attention.launches, ssd_scan.launches
+    out = flash_attention(q, k, v)
+    y, st = ssd_scan(x, a, B, C, 64)
+    assert (flash_attention.launches, ssd_scan.launches) == (n0 + 1, m0 + 1)
+    assert torch.equal(out, torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, True, 0, 0, False)[0])
+    yo, sto = torch.ops.repro_torch.ssd_scan_fwd(x, a, B, C, 64)
+    assert torch.equal(y, yo) and torch.equal(st, sto)
+    with FlopCounterMode(display=False) as fc:
+        flash_attention(q, k, v)
+        ssd_scan(x, a, B, C, 64)
+    assert (flash_attention.launches, ssd_scan.launches) == (n0 + 3, m0 + 3)
+    counts = {str(op): n for op, n in fc.get_flop_counts()["Global"].items()}
+    assert counts.get("repro_torch.flash_attention_fwd", 0) > 0, counts
+    assert counts.get("repro_torch.ssd_scan_fwd", 0) > 0, counts
+
+
+@pytest.mark.parametrize("arch,kind", [("qwen2_1_5b", "train"),
+                                       ("qwen2_1_5b", "prefill"),
+                                       ("mamba2_370m", "train"),
+                                       ("granite_moe_1b_a400m", "train")])
+def test_dryrun_traces_kernels_without_launching(cuda, arch, kind):
+    """A dry-run over fake CUDA tensors (flash attention on) reaches B3's and
+    B4's custom ops through their sharding rules on a fake (2, 2) mesh and
+    launches neither; at (1, 1) its FLOPs equal a ``FlopCounterMode`` count
+    of the same step run for real."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.launch.inputs import train_batch
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              flash_attention=True, dtype="bfloat16")
+    spec = dict(seq_len=128, global_batch=4, kind=kind)
+    n0 = flash_attention.launches + ssd_scan.launches
+    try:
+        rec = lower_cell(arch, kind, cfg=cfg, device="cuda", spec=spec,
+                         mesh=make_dev_mesh(2, 2, device="cuda"))
+        assert rec["flops"] > 0 and rec["chips"] == 4
+        one = lower_cell(arch, kind, cfg=cfg, device="cuda", spec=spec,
+                         mesh=make_dev_mesh(1, 1, device="cuda"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert flash_attention.launches + ssd_scan.launches == n0
+    model = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    batch = train_batch(cfg, 4, 128, device=cuda)
+    if kind == "train":
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        step, opt = make_train_step(model), adamw_init(params)
+        with FlopCounterMode(display=False) as fc:
+            step(params, opt, batch)
+    else:
+        batch.pop("labels")
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            make_prefill_step(model, cfg, 128)(batch)
+    assert flash_attention.launches + ssd_scan.launches > n0
+    assert one["flops"] == fc.get_total_flops()

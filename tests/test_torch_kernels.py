@@ -20,6 +20,7 @@ from repro_torch.kernels.nbody import (nbody_forces_rows,
                                        nbody_forces_rows_plain)
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
                                           wave_step_rows_plain)
+from torch_parity import keep_reference_ids  # noqa: F401
 
 
 def _bodies(N, seed=0, dtype=np.float32):

@@ -28,6 +28,7 @@ import repro.core as ref_core
 import repro_torch.core as port_core
 from repro.core.memo import _Call as RefCall
 from repro_torch.core.memo import _Call as PortCall
+from torch_parity import keep_reference_ids  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 GRIDS = [(1, 1), (2, 2), (3, 1)]

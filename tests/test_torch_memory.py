@@ -21,6 +21,7 @@ from repro_torch.core.buffer import VirtualBuffer
 from repro_torch.core.command_graph import CommandType, generate_cdag
 from repro_torch.core.instruction_graph import IdagGenerator, InstructionType
 from repro_torch.core.task_graph import TaskGraph
+from torch_parity import keep_reference_ids  # noqa: F401
 
 N = 4096                      # per-buffer doubles -> 32768 bytes
 BYTES = N * 8

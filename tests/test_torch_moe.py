@@ -31,6 +31,7 @@ from repro_torch.models import ArchConfig, DecoderLM, build_model
 from repro_torch.models import layers as L
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.runtime import ServeLoop
+from torch_parity import keep_reference_ids  # noqa: F401
 
 ARCH = "granite-moe-3b-a800m"
 LOGIT_TOL = dict(atol=1e-4, rtol=0)

@@ -28,6 +28,7 @@ from repro_torch.core.backend import (CardClock, CardGate, card_times,
 from repro_torch.core.instructions import InstructionType
 from repro_torch.core.observability import (WAIT_CLASSES, InstrRecord,
                                             lane_utilization)
+from torch_parity import keep_reference_ids  # noqa: F401
 
 
 def _program(rt, core=port_core, steps=6):

@@ -21,6 +21,7 @@ import numpy as np
 
 import repro.core as ref_core
 import repro_torch.core as port_core
+from torch_parity import keep_reference_ids  # noqa: F401
 
 
 def _api(core):

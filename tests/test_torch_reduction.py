@@ -24,6 +24,7 @@ from repro_torch.core.communicator import Communicator, Payload, ReceiveArbiter
 from repro_torch.core.instruction_graph import (CollFragment, Instruction,
                                                 InstructionType, Pilot)
 from repro_torch.core.reduction import _make_op
+from torch_parity import keep_reference_ids  # noqa: F401
 
 QUIET = dict(retransmit_timeout=60.0)
 

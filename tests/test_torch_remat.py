@@ -40,6 +40,7 @@ from repro_torch.launch import steps
 from repro_torch.models import build_model
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.runtime import TrainLoop
+from torch_parity import keep_reference_ids  # noqa: F401
 
 FAMILIES = ["qwen2-1.5b", "granite-moe-1b-a400m", "mamba2-370m", "zamba2-7b",
             "whisper-tiny", "internvl2-26b"]

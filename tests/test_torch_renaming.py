@@ -25,6 +25,7 @@ import torch
 import repro.core as ref_core
 import repro_torch.core as port_core
 from repro_torch.core import InstructionType
+from torch_parity import keep_reference_ids  # noqa: F401
 
 N = 32
 RTOL = 1e-12

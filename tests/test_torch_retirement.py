@@ -11,6 +11,7 @@ import repro.core as ref_core
 import repro_torch.core as port_core
 from repro.core.buffer import VirtualBuffer as RefVirtualBuffer
 from repro_torch.core.buffer import VirtualBuffer
+from torch_parity import keep_reference_ids  # noqa: F401
 
 
 def _runtime(api, *args, **kw):

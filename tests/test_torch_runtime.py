@@ -30,6 +30,7 @@ from repro_torch.core import Runtime
 from repro_torch.core.allocation import USER_HOST, Allocation
 from repro_torch.core.communicator import Payload
 from repro_torch.core.executor import BufferView
+from torch_parity import keep_reference_ids  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 GRIDS = [(1, 1), (2, 2), (3, 1)]

@@ -28,6 +28,7 @@ from repro_torch.models import DecoderLM
 from repro_torch.models import layers as L
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.runtime import ServeLoop
+from torch_parity import keep_reference_ids  # noqa: F401
 
 DENSE = ["qwen2-1.5b", "h2o-danube-1.8b", "starcoder2-3b", "minitron-4b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=0)

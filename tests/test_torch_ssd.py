@@ -21,6 +21,7 @@ from repro.kernels.ssd_scan import ssd_scan_tpu
 from repro.models import mamba2 as jax_mamba2
 from repro_torch.kernels.ssd_scan import (segsum, ssd_chunk_ref, ssd_scan,
                                           ssd_scan_plain)
+from torch_parity import keep_reference_ids  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

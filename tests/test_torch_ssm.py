@@ -27,6 +27,7 @@ from repro_torch.models import Mamba2LM, Zamba2LM, build_model
 from repro_torch.models import mamba2 as port_mamba2
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.runtime import ServeLoop
+from torch_parity import keep_reference_ids  # noqa: F401
 
 SSM = ["mamba2-370m", "zamba2-7b"]
 TOL = dict(atol=1e-4, rtol=0)

@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention, ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.convert import model_from_numpy
+from torch_parity import keep_reference_ids  # noqa: F401
 
 
 def _inputs(b, s, h, p, n, seed):

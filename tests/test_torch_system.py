@@ -20,6 +20,7 @@ from repro_torch.core import (BoundsError, Box, all_range, fixed,
                               write)
 from repro_torch.core.region import Region
 from repro_torch.core.task_graph import TaskType
+from torch_parity import keep_reference_ids  # noqa: F401
 
 GRIDS = [(1, 1), (1, 2), (2, 1), (2, 2), (3, 2)]
 

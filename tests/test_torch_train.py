@@ -46,6 +46,7 @@ from repro_torch.models.convert import model_from_numpy
 from repro_torch.optim import (adamw_init, adamw_update, compress_grads,
                                compression_ratio, decompress_grads)
 from repro_torch.runtime import ElasticTrainer, TrainLoop, rebalance_weights
+from torch_parity import keep_reference_ids  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2-1.5b"

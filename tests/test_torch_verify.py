@@ -21,6 +21,7 @@ import torch
 
 import repro.core as ref_core
 import repro_torch.core as port_core
+from torch_parity import keep_reference_ids  # noqa: F401
 
 N = 32
 GRIDS = [(1, 1), (2, 2), (3, 1)]

@@ -33,6 +33,7 @@ from repro_torch.models import InternVLModel, WhisperModel, build_model
 from repro_torch.models.convert import model_from_numpy
 from repro_torch.models.whisper import MAX_TGT, sinusoid
 from repro_torch.runtime import ServeLoop, TrainLoop
+from torch_parity import keep_reference_ids  # noqa: F401
 
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
 B, S = 2, 32

@@ -2,8 +2,12 @@
 JAX package's: relative errors, and a JAX parameter (or gradient) tree
 named as the port's ``named_parameters()`` name the same weights."""
 
+import itertools
+import re
+
 import jax
 import numpy as np
+import pytest
 
 
 def rel(got, exp) -> float:
@@ -50,3 +54,25 @@ def assert_grads_match(model, jax_grads, family: str, tol: float = 1e-4):
         assert got[name].grad is not None, name
         assert got[name].grad.shape == g.shape, name
         assert rel(got[name].grad.numpy(), g) <= tol, name
+
+
+def _count_value(counter) -> int:
+    return int(re.fullmatch(r"count\((-?\d+)\)", repr(counter)).group(1))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def keep_reference_ids():
+    """Run a test module on copies of the JAX package's process-wide task
+    and buffer id counters, so that it leaves them where they were.  A
+    chaos plan's fates hash transfer ids built from them, so
+    ``tests/test_faults.py::test_fault_smoke_bit_identical`` injects no
+    fault at some counter values and fails there; under ``--dist
+    loadfile`` it may run after these modules in the same worker.  Import
+    this fixture into every module that drives the JAX runtime."""
+    import repro.core.buffer as buffer
+    import repro.core.task_graph as task_graph
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((task_graph, "_task_ids"), (buffer, "_buffer_ids")):
+            mp.setattr(mod, name,
+                       itertools.count(_count_value(getattr(mod, name))))
+        yield
