@@ -187,8 +187,15 @@ Phases, each printing one JSON line:
                 CPU port's for the same window sequence at a small size, and
                 windows x 4 launches of B2 and B1; per-window latency p50
                 and p99 per tenant, the memo's patch time, the device peak.
-                Then fault C5's program: one tenant on ``ServingRuntime(2,
-                1, max_inflight_per_tenant=1)`` whose two windows exchange
+                Then the pipelined runs of fault C6: clients that submit
+                every window after the first and then drain, memo on,
+                renaming off and on, ``max_inflight_windows`` 1 and 2 in
+                turns (1, 2, 2, 1), each bitwise equal to the runtime-free
+                steps with the CPU port's memo counts and windows x 4
+                launches; windows per second at depth 2 against depth 1
+                printed beside the card's name and power limit.  Then
+                fault C5's program: one tenant on ``ServingRuntime(2, 1,
+                max_inflight_per_tenant=1)`` whose two windows exchange
                 halves between the nodes, with neighborhood and all-range
                 reads, each within 30 s and with the bytes of the uncapped
                 run.
@@ -276,6 +283,10 @@ SERVE_RT_RUNS = {"memo": dict(memo=True), "memo_off": dict(memo=False),
                  "memo_renaming": dict(memo=True, renaming=True,
                                        max_inflight_windows=2,
                                        verify="window")}
+# the pipelined runs (fault C6): clients that submit every window and then
+# drain, memo on, renaming off and on, one and two windows in flight, in
+# turns depth 1, 2, 2, 1 for each renaming setting
+SERVE_RT_PIPELINED_DEPTHS = (1, 2, 2, 1)
 # faults: the chaos plan of tests/test_faults.py's smoke case on the N-body
 # (NBODY_N bodies, NODES x DEVICES); a fail-stop of node 1 at its
 # CRASH_AT-th issued instruction in CRASH_STEPS WaveSim steps (WAVE_H x
@@ -518,16 +529,21 @@ def host_ms(fn, reps: int, warmup: int = 1) -> float:
     return dt
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def phase_build() -> str:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
     seconds = time.perf_counter() - t0
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     log = (lib_path.parent / "build.log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -1231,7 +1247,8 @@ def memo_counts(stats: dict) -> dict:
                         for n, t in sorted(stats["tenants"].items())}}
 
 
-def served_run(device: str, kw: dict, u0, u1, P0, V0) -> dict:
+def served_run(device: str, kw: dict, u0, u1, P0, V0,
+               wait: bool = True) -> dict:
     """One ``serve_simulations`` run on a ServingRuntime(NODES, DEVICES)."""
     from repro_torch.apps import serve_simulations
     from repro_torch.core import ServingRuntime
@@ -1243,7 +1260,7 @@ def served_run(device: str, kw: dict, u0, u1, P0, V0) -> dict:
         out = serve_simulations(srv, u0, u1, P0, V0,
                                 wave_windows=SERVE_RT_WAVE_WINDOWS,
                                 nbody_windows=SERVE_RT_NBODY_WINDOWS,
-                                dt=DT, mass=mass, c=WAVE_C)
+                                dt=DT, mass=mass, c=WAVE_C, wait=wait)
         wall = time.perf_counter() - t0
         launches = {"nbody_forces_rows": nbody_forces_rows.launches,
                     "wave_step_rows": wave_step_rows.launches}
@@ -1325,12 +1342,69 @@ def admission_cap_case(dev) -> dict:
     return out
 
 
+def pipelined_runs(dev, u0, u1, P0, V0, exp_field, exp_P, small) -> dict:
+    """Fault C6 on the card: both tenants with clients that submit every
+    window and then drain, memo on, one and two windows in flight
+    (``SERVE_RT_PIPELINED_DEPTHS`` in turns), renaming off and on.  Each
+    run's results bitwise equal to the runtime-free steps, its memo counts
+    equal to the CPU port's for the same runtime and window sequence at a
+    small size, B2 and B1 launched windows x devices times.  Prints windows
+    per second (after the first window, which seeds the buffers) at depth
+    2 against depth 1 beside the card's name and power limit."""
+    want_launches = {"nbody_forces_rows":
+                     SERVE_RT_NBODY_WINDOWS * NODES * DEVICES,
+                     "wave_step_rows": SERVE_RT_WAVE_WINDOWS * NODES * DEVICES}
+    windows = {"wave": SERVE_RT_WAVE_WINDOWS, "nbody": SERVE_RT_NBODY_WINDOWS}
+    out, ok = {}, True
+    for renaming in (False, True):
+        name = "renaming" if renaming else "plain"
+        runs, rates = [], {1: [], 2: []}
+        for depth in SERVE_RT_PIPELINED_DEPTHS:
+            kw = dict(memo=True, renaming=renaming,
+                      max_inflight_windows=depth)
+            cpu = served_run("cpu", kw, *small, wait=False)
+            r = served_run(dev.type, kw, u0, u1, P0, V0, wait=False)
+            checks = {
+                "wave_bit_identical_to_runtime_free": bool(np.array_equal(
+                    r["out"]["wave"]["field"], exp_field)),
+                "nbody_bit_identical_to_runtime_free": bool(np.array_equal(
+                    r["out"]["nbody"]["P"], exp_P)),
+                "memo_counts_equal_cpu": r["counts"] == cpu["counts"],
+                "launches_equal_windows_x_devices":
+                    r["launches"] == want_launches}
+            ok = ok and all(checks.values())
+            # windows 1..N-1: the first window seeds the buffers
+            rate = {t: (windows[t] - 1) / r["out"][t]["seconds"]
+                    for t in windows}
+            rates[depth].append(rate)
+            runs.append({"depth": depth, **checks, "windows_per_s": rate,
+                         "seconds": {t: r["out"][t]["seconds"]
+                                     for t in windows},
+                         "wall_s": r["wall_s"], "memo_counts": r["counts"],
+                         "memo_counts_cpu": cpu["counts"]})
+        best = {d: {t: max(x[t] for x in rates[d]) for t in windows}
+                for d in rates}
+        out[name] = {"runs": runs, "best_windows_per_s": best,
+                     "depth2_over_depth1": {t: best[2][t] / best[1][t]
+                                            for t in windows}}
+    out["ok"] = ok
+    smi = out["nvidia_smi"] = nvidia_smi()
+    for name in ("plain", "renaming"):
+        b = out[name]["best_windows_per_s"]
+        print(f"serving-runtime pipelined ({name}, no-wait clients, best of "
+              f"2): wave {b[1]['wave']:.2f} -> {b[2]['wave']:.2f} windows/s, "
+              f"nbody {b[1]['nbody']:.2f} -> {b[2]['nbody']:.2f} windows/s "
+              f"(depth 1 -> 2) on {smi}", flush=True)
+    return out
+
+
 def phase_serving_runtime(dev) -> dict:
     """Two tenants on ServingRuntime(NODES, DEVICES) on the card, memo on,
     off, and on with renaming, two windows in flight and the sanitizer;
     each run's results bitwise against the same steps without the runtime,
     its memo counts against the CPU port's on the same window sequence;
-    then fault C5's case (``admission_cap_case``)."""
+    then the pipelined runs of clients that do not wait
+    (``pipelined_runs``) and fault C5's case (``admission_cap_case``)."""
     t_phase = time.perf_counter()
     from repro_torch.kernels.nbody import nbody_forces_rows
     from repro_torch.kernels.stencil5 import wave_step_rows
@@ -1389,13 +1463,16 @@ def phase_serving_runtime(dev) -> dict:
             "patch_us": r["patch_us"], "verify": r["verified"],
             "device_peak_bytes": r["device_peak_bytes"],
             "torch_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    pipelined = pipelined_runs(dev, u0, u1, P0, V0, exp_field, exp_P,
+                               (su0, su0 * 0.5, sP0, sP0 * 0.1))
+    ok = ok and pipelined["ok"]
     cap_one = admission_cap_case(dev)
     ok = ok and all(r["ok"] for r in cap_one.values())
     res = {"phase": "serving-runtime", "ok": ok, "grid": [NODES, DEVICES],
            "wave": {"field": [WAVE_H, WAVE_W],
                     "windows": SERVE_RT_WAVE_WINDOWS},
            "nbody": {"bodies": NBODY_N, "windows": SERVE_RT_NBODY_WINDOWS},
-           "dtype": "float32", "runs": runs,
+           "dtype": "float32", "runs": runs, "pipelined": pipelined,
            "admission_cap_1": cap_one,
            "seconds": time.perf_counter() - t_phase}
     emit(res)

@@ -28,8 +28,9 @@ Replay protocol (id-renaming rules — DESIGN.md §12.3):
 
 * every clone gets a fresh ``iid``; in-window dependency edges are remapped
   onto the clone counterparts, every out-of-window edge onto the tenant's
-  *boundary* (the executed epoch of the previous window) — this serializes
-  a tenant's windows, which is REQUIRED: clones share the template's
+  *boundary* (the executed epoch of the previous window; under pipelined
+  replay, of window ``m - depth``) — this serializes a tenant's windows,
+  which is REQUIRED: clones share the template's
   ``Allocation`` objects ("same base addresses"), so window k+1's scratch
   ALLOC must not overtake window k's FREE;
 * ``transfer_id`` tuples lead with a task id by convention — patched as
@@ -65,6 +66,18 @@ left it, and a cold lowering may move the allocations a template uses.
   TDAG/CDAG/IDAG state is that of the executed windows.  A replay whose
   (predecessor, signature) is that of the last cold lowering returns the
   state to it, which empties the list.
+
+Pipelined replay (``max_inflight_windows`` >= 2) follows rules of its own
+too: the reference's replays race when a client does not wait for each
+window before it submits the next (fault C6).  Each window's epoch waits
+for the previous window's, so the boundary epoch of window ``m - depth``
+covers every window before it; the hazard edges between the windows in
+flight are wired for every earlier access whose region overlaps (the
+reference keeps one writer per allocation and skips every access after a
+window's first write, but accesses of one window to disjoint regions are
+not ordered with each other); a capture enters the hazard table like any
+replay, and a replay less than ``depth`` windows after a cold window syncs
+on that window's epoch.
 """
 
 from __future__ import annotations
@@ -237,22 +250,9 @@ def _replayable(node_instrs: list[list[Instruction]]) -> Optional[str]:
 
 
 def _alloc_touches(i: Instruction) -> tuple[list, list]:
-    """(read, written) allocations of one instruction, by executor semantics.
-
-    Feeds the cross-window hazard wiring of pipelined replay (DESIGN.md
-    §13.4): persistent allocations shared by concurrently in-flight windows
-    need explicit RAW/WAR/WAW edges between windows, since replay bypasses
-    the MemoryManager's producer/reader maps entirely.
-
-    Derived from :meth:`Instruction.accesses` (the structured access
-    metadata the schedule sanitizer also analyzes), collapsed to
-    allocation granularity, with two deliberate hazard-level deviations:
-    ALLOC/FREE count as writers of their allocation (backing-store
-    lifetime IS a hazard between windows), and AWAIT_RECEIVE counts as a
-    writer of the landing allocation (the arbiter materializes payload
-    bytes under it, so a concurrent window's reader must order behind it,
-    not beside it).
-    """
+    """(read, written) allocations of one instruction, by executor semantics
+    (those of :func:`_hazard_accesses`, collapsed to allocations; a
+    read-modify-write counts as both).  Feeds the window digest."""
     T = InstructionType
     it = i.itype
     if it in (T.ALLOC, T.FREE):
@@ -282,6 +282,33 @@ def _alloc_touches(i: Instruction) -> tuple[list, list]:
     return _dedup(reads), _dedup(writes)
 
 
+def _hazard_accesses(i: Instruction) -> list[tuple]:
+    """``(allocation, region, writes)`` of one instruction, by executor
+    semantics.
+
+    Feeds the cross-window hazard wiring of pipelined replay (DESIGN.md
+    §13.4): persistent allocations shared by concurrently in-flight windows
+    need explicit RAW/WAR/WAW edges between windows, since replay bypasses
+    the MemoryManager's producer/reader maps entirely.  Regions matter:
+    instructions of one window that touch disjoint regions of an
+    allocation are not ordered with each other, so a later window orders
+    behind each of them whose region it overlaps.
+
+    Derived from :meth:`Instruction.accesses` (the structured access
+    metadata the schedule sanitizer also analyzes), with two deliberate
+    hazard-level deviations: ALLOC/FREE write their whole allocation
+    (backing-store lifetime IS a hazard between windows), and AWAIT_RECEIVE
+    writes its region of the landing allocation (the arbiter materializes
+    payload bytes under it, so a concurrent window's reader must order
+    behind it, not beside it).
+    """
+    T = InstructionType
+    if i.itype in (T.ALLOC, T.FREE):
+        return [(i.allocation, Region.from_box(i.allocation.box), True)]
+    return [(a, region, i.itype is T.AWAIT_RECEIVE or mode != "r")
+            for a, region, mode in i.accesses()]
+
+
 @dataclass
 class _Template:
     """One captured, relocatable instruction window (the memo cache value).
@@ -295,7 +322,9 @@ class _Template:
     scratch allocations: replay ``u`` binds rename set ``u % depth`` —
     set 0 is the identity (the template's own scratch), higher sets are
     lazily cloned physicals with fresh ``aid``s — so consecutive replays
-    never collide on scratch backing and can execute concurrently.
+    never collide on scratch backing and can execute concurrently.  The
+    previous user of a set is ``depth`` or more windows back, which the
+    replay's boundary epoch covers.
     """
     node_instrs: list[list[Instruction]]
     node_pilots: list[list[Pilot]]             # per node, this window's pilots
@@ -386,25 +415,26 @@ class Tenant:
         # memo cache in LRU order (satellite of DESIGN.md §13): bounded by
         # ``srv.memo_cache_max`` entries, least-recently-hit evicted first
         self._memo: OrderedDict[tuple, _CacheEntry] = OrderedDict()
-        # the executed epoch instruction every out-of-window replay edge
-        # remaps onto (starts at the bootstrap init epoch)
-        self.last_boundary: list[Instruction] = []
-        # pipelined replay state (DESIGN.md §13.4).  ``depth`` windows of
-        # this tenant may be in flight at once; window ``m`` boundary-syncs
-        # on epoch(m - depth) — the ring of the last ``depth`` window
-        # epochs per node — instead of epoch(m - 1).
+        # the executed epochs every out-of-window replay edge remaps onto
+        # (DESIGN.md §13.4): ``depth`` windows of this tenant may be in
+        # flight at once, and window ``m`` boundary-syncs on epoch(m -
+        # depth), the oldest of the ring of the last ``depth`` window epochs
+        # per node (starting at the bootstrap init epoch).  Under pipelining
+        # each window's epoch also waits for the previous window's, so
+        # epoch(m - depth) covers every window before it; depth 1 syncs on
+        # epoch(m - 1).
         self.depth = max(1, srv.max_inflight_windows)
         self._window_seq = 0
         self._ring: list[deque[Instruction]] = []
-        # fence: after a cold (non-replay) window, the next ``depth``
-        # replays serialize behind their immediate predecessor — cold
-        # windows execute the template's own allocations outside the
-        # hazard-table protocol, so the ring boundary alone cannot cover
-        # them
-        self._fence_left: list[int] = [0] * srv.num_nodes
+        # per node, (window, epoch) of the newest cold window: its
+        # accesses are not in the hazard table, so a replay less than
+        # ``depth`` windows after it syncs on its epoch instead of the ring
+        self._cold: list[Optional[tuple[int, Instruction]]] = [
+            None] * srv.num_nodes
         # per-node cross-window hazard table: persistent allocation id ->
-        # last writer clone + reader clones of the last ``depth`` windows
-        self._aid_last: list[dict[int, dict]] = [
+        # (window, clone, region, writes) of each access by the replays
+        # (captures included) of the last ``depth - 1`` windows
+        self._hazards: list[dict[int, list[tuple]]] = [
             {} for _ in range(srv.num_nodes)]
         # pinned gather collection buffers: bid -> (ndarray, closure), so
         # repeated gathers replay the SAME closure instead of re-anchoring
@@ -430,7 +460,6 @@ class Tenant:
             boot = list(self.idags[n].instructions)
             for i in boot:
                 i.tenant = name
-            self.last_boundary.append(self.idags[n]._init_epoch)
             self._ring.append(deque([self.idags[n]._init_epoch],
                                     maxlen=self.depth))
             if srv.verifier is not None:
@@ -658,17 +687,15 @@ class Tenant:
         tenant, post pilots, and advance the boundary.
 
         Under pipelined replay a cold window may run while up to ``depth``
-        replayed windows are still in flight; its allocations live outside
-        the hazard-table protocol, so it syncs on EVERY ring epoch and arms
-        the fence that makes the next ``depth`` replays serialize behind
-        their immediate predecessor (which transitively covers this window).
+        replayed windows are still in flight; its accesses stay out of the
+        hazard table, so its rewired edges sync on the previous window's
+        epoch (which covers every earlier window) and the replays of the
+        next ``depth - 1`` windows sync on its epoch (``_boundary``).
         """
         pipelined = self.depth > 1
-        syncs = (list(self._ring[n]) if pipelined
-                 else [self.last_boundary[n]])
+        prev_epoch = self._ring[n][-1]
         if pipelined:
-            self._aid_last[n].clear()
-            self._fence_left[n] = self.depth
+            self._hazards[n].clear()
         epoch_instr = None
         for i in instrs:
             i.tenant = self.name
@@ -677,14 +704,15 @@ class Tenant:
                    for d, _ in i.dependencies):
                 i.dependencies = [(d, k) for d, k in i.dependencies
                                   if not getattr(d, "_memo_template", False)]
-                for b in syncs:
-                    i.add_dependency(b, _task_mod.DepKind.SYNC)
+                i.add_dependency(prev_epoch, DepKind.SYNC)
             if i.itype == InstructionType.EPOCH:
                 epoch_instr = i
         for p in pilots:
             self.srv.comm.post_pilot(p)
         if epoch_instr is not None:
-            self.last_boundary[n] = epoch_instr
+            if pipelined:
+                epoch_instr.add_dependency(prev_epoch, DepKind.SYNC)
+            self._cold[n] = (wseq, epoch_instr)
             self._ring[n].append(epoch_instr)
         if self.srv.verifier is not None:
             self.srv.verifier.capture_pilots(pilots)
@@ -715,22 +743,18 @@ class Tenant:
                     seen.add(t[0])
                     tids.append(t[0])
             epoch_idx.append(e)
-        # stamp each instruction with the PERSISTENT allocations it touches
+        # stamp each instruction with its accesses to PERSISTENT allocations
         # (scratch is template-private per rename set, so excluded) — drives
         # the cross-window hazard wiring of pipelined replay
         allocs: dict[int, object] = {}
         for instrs in node_instrs:
             for i in instrs:
-                reads, writes = _alloc_touches(i)
-                for a in reads + writes:
-                    if a is not None and a.aid not in scratch:
+                hz = []
+                for a, region, w in _hazard_accesses(i):
+                    if a.aid not in scratch:
                         allocs[a.aid] = a
-                i._memo_reads = tuple(a.aid for a in reads
-                                      if a is not None
-                                      and a.aid not in scratch)
-                i._memo_writes = tuple(a.aid for a in writes
-                                       if a is not None
-                                       and a.aid not in scratch)
+                        hz.append((a.aid, region, w))
+                i._memo_hazards = tuple(hz)
         for pilots in node_pilots:
             for p in pilots:
                 if p.transfer_id[0] not in seen:
@@ -799,6 +823,15 @@ class Tenant:
                 if rb.allocation.aid in amap else rb
                 for rb in c.red_bindings)
 
+    def _boundary(self, n: int, wseq: int) -> Instruction:
+        """The epoch that window ``wseq``'s replay on node ``n`` syncs on:
+        that of window ``wseq - depth``, or of the newest cold window if it
+        is later (depth 1: the previous window's)."""
+        cold = self._cold[n]
+        if cold is not None and cold[0] > wseq - self.depth:
+            return cold[1]
+        return self._ring[n][0]
+
     def _replay(self, tpl: _Template, calls: list[_Call], *,
                 identity: bool = False) -> WindowHandle:
         """Instantiate a cached window: clone + patch + submit.
@@ -811,10 +844,12 @@ class Tenant:
         Pipelined replay (``depth > 1``, DESIGN.md §13.4): instead of
         serializing behind the previous window's epoch, a replay boundary-
         syncs on the OLDEST ring epoch (window ``m`` waits for window
-        ``m - depth``), binds rename set ``uses % depth`` for scratch, and
-        wires precise RAW/WAR/WAW edges against the last writer/readers of
-        each persistent allocation, so only truly conflicting instructions
-        of overlapping windows serialize.
+        ``m - depth`` and, through the epoch chain, every window before
+        it), binds rename set ``uses % depth`` for scratch, and wires
+        RAW/WAR/WAW edges against every access of the windows in between
+        whose region overlaps, so only truly conflicting instructions of
+        overlapping windows serialize.  The capture submission takes part
+        like any replay.
         """
         srv = self.srv
         N = srv.num_nodes
@@ -832,24 +867,16 @@ class Tenant:
         tpl.uses += 1
         wseq = self._window_seq
         self._window_seq += 1
+        cut = wseq - self.depth          # oldest window the boundary covers
         cids: list[Optional[int]] = [None] * N
         for n in range(N):
             idag = self.idags[n]
             clones: dict[int, Instruction] = {}
             out: list[Instruction] = []
             msg_map: dict[int, int] = {}
-            if not pipelined or identity or self._fence_left[n] > 0:
-                # fenced (or unpipelined): serialize behind the immediate
-                # predecessor window, which transitively covers everything
-                boundary = self.last_boundary[n]
-                if pipelined and not identity and self._fence_left[n] > 0:
-                    self._fence_left[n] -= 1
-            else:
-                boundary = self._ring[n][0]
-            aid_tab = self._aid_last[n]
-            written_this: set[int] = set()
-            new_readers: dict[int, list[Instruction]] = {}
-            new_writer: dict[int, Instruction] = {}
+            boundary = self._boundary(n, wseq)
+            hazards = self._hazards[n]
+            accessed: list[tuple] = []
             for i in tpl.node_instrs[n]:
                 c = copy.copy(i)
                 c.iid = next(_instr_mod._instr_ids)
@@ -889,32 +916,18 @@ class Tenant:
                         needs_boundary = True
                 if needs_boundary:
                     c.add_dependency(boundary, _task_mod.DepKind.SYNC)
-                if pipelined and not identity:
-                    # cross-window hazards on persistent allocations: RAW
-                    # on the previous writer, WAW + WAR when first writing.
-                    # Entries older than ``depth`` windows are covered by
-                    # the ring boundary and skipped.
-                    cut = wseq - self.depth
-                    for aid in getattr(i, "_memo_reads", ()):
-                        if aid not in written_this:
-                            ent = aid_tab.get(aid)
-                            if (ent and ent["w"] is not None
-                                    and ent["w"][0] > cut):
-                                c.add_dependency(ent["w"][1], DepKind.TRUE)
-                        new_readers.setdefault(aid, []).append(c)
-                    for aid in getattr(i, "_memo_writes", ()):
-                        if aid not in written_this:
-                            ent = aid_tab.get(aid)
-                            if ent:
-                                if (ent["w"] is not None
-                                        and ent["w"][0] > cut):
-                                    c.add_dependency(ent["w"][1],
-                                                     DepKind.OUTPUT)
-                                for rs, r in ent["r"]:
-                                    if rs > cut:
-                                        c.add_dependency(r, DepKind.ANTI)
-                            written_this.add(aid)
-                        new_writer[aid] = c
+                if pipelined:
+                    # cross-window hazards on persistent allocations,
+                    # against the windows after the boundary's
+                    for aid, region, writes in i._memo_hazards:
+                        for s, d, r, w in hazards.get(aid, ()):
+                            if (s > cut and (writes or w)
+                                    and region.overlaps(r)):
+                                c.add_dependency(
+                                    d, DepKind.OUTPUT if writes and w
+                                    else DepKind.ANTI if writes
+                                    else DepKind.TRUE)
+                        accessed.append((aid, (wseq, c, region, writes)))
                 clones[i.iid] = c
                 out.append(c)
             e = tpl.epoch_idx[n]
@@ -922,20 +935,17 @@ class Tenant:
                 epoch_clone = clones[tpl.node_instrs[n][e].iid]
                 cids[n] = (epoch_clone.command.cid
                            if epoch_clone.command is not None else None)
-                self.last_boundary[n] = epoch_clone
+                if pipelined:
+                    epoch_clone.add_dependency(self._ring[n][-1],
+                                               DepKind.SYNC)
                 self._ring[n].append(epoch_clone)
-            if pipelined and not identity:
-                cutoff = wseq - self.depth
-                for aid in set(new_readers) | set(new_writer):
-                    ent = aid_tab.setdefault(aid, {"w": None, "r": []})
-                    if aid in new_writer:
-                        ent["w"] = (wseq, new_writer[aid])
-                        ent["r"] = [(wseq, r)
-                                    for r in new_readers.get(aid, [])]
-                    else:
-                        ent["r"] = [x for x in ent["r"] if x[0] > cutoff]
-                        ent["r"] += [(wseq, r)
-                                     for r in new_readers.get(aid, [])]
+            if pipelined:
+                # keep the entries the next window can reach
+                for aid in {aid for aid, _ in accessed}:
+                    hazards[aid] = [x for x in hazards.get(aid, ())
+                                    if x[0] > cut + 1]
+                for aid, entry in accessed:
+                    hazards[aid].append(entry)
             new_pilots = []
             for p in tpl.node_pilots[n]:
                 t = p.transfer_id

@@ -797,6 +797,50 @@ def test_replayed_windows_bitwise_equal_cold_on_card(cuda):
     np.testing.assert_array_equal(out[True][0], u.cpu().numpy())
 
 
+@pytest.mark.parametrize("renaming", [False, True], ids=["plain", "renaming"])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_no_wait_pipelined_tenants_bitwise_on_card(cuda, depth, renaming):
+    """Fault C6 on the card, where each lane is a CUDA stream: WaveSim and
+    N-body clients that submit every window and drain once, memo on, with
+    ``depth`` windows in flight.  Each of three runs gives the bytes of
+    memo off and of the runtime-free steps, and B1 and B2 ran in every
+    window."""
+    rng = np.random.default_rng(0)
+    P0 = rng.standard_normal((1024, 3), dtype=np.float32)
+    V0 = rng.standard_normal((1024, 3), dtype=np.float32) * 0.1
+    u0 = rng.standard_normal((512, 256), dtype=np.float32)
+    u1 = rng.standard_normal((512, 256), dtype=np.float32)
+    dt, mass = 1e-3, 1.0 / 1024
+
+    def run(memo):
+        nbody_forces_rows.launches = wave_step_rows.launches = 0
+        with ServingRuntime(2, 2, memo=memo, renaming=renaming,
+                            max_inflight_windows=depth) as srv:
+            r = serve_simulations(srv, u0, u1, P0, V0, wave_windows=40,
+                                  nbody_windows=10, dt=dt, mass=mass,
+                                  wait=False)
+            replayed = srv.tenants["nbody"].replayed_windows
+        assert wave_step_rows.launches == 40 * 4
+        assert nbody_forces_rows.launches == 10 * 4
+        return r["wave"]["field"], r["nbody"]["P"], replayed
+
+    off_field, off_P, _ = run(False)
+    um, u = torch.from_numpy(u0).to(cuda), torch.from_numpy(u1).to(cuda)
+    for _ in range(40):
+        um, u = u, wave_step_rows(um, u, 0, 512, 0.25)
+    P, V = torch.from_numpy(P0).to(cuda), torch.from_numpy(V0).to(cuda)
+    for _ in range(10):
+        V = V + mass * nbody_forces_rows(P, 0, 1024) * dt
+        P = P + V * dt
+    np.testing.assert_array_equal(off_field, u.cpu().numpy())
+    np.testing.assert_array_equal(off_P, P.cpu().numpy())
+    for rep in range(3):
+        field, pos, replayed = run(True)
+        assert replayed > 0
+        np.testing.assert_array_equal(field, off_field, err_msg=f"run {rep}")
+        np.testing.assert_array_equal(pos, off_P, err_msg=f"run {rep}")
+
+
 def test_crash_teardown_returns_device_memory(cuda):
     """A fail-stopped WaveSim run on 2 x 2: after ``shutdown``, with the
     garbage collector off, PyTorch holds the device memory it held before

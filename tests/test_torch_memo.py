@@ -656,3 +656,151 @@ def test_admission_cap_of_one_on_exchanging_windows(reads):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(want, np.arange(EXCHANGE_N) + 2.0)
     assert all(v == 0 for counts in inflight for v in counts.values())
+
+
+# -- fault C6: pipelined replay (max_inflight_windows >= 2) -------------------
+# Window m of a tenant waits only for window m - depth; the hazard edges of
+# ``Tenant._replay`` must order every conflicting pair of accesses between
+# the windows in flight.  ``verify="final"`` checks races across windows
+# (window mode checks each window alone), and clients that submit every
+# window before they drain let the windows overlap for real.
+def _sim_inputs(H, W, bodies, seed):
+    rng = np.random.default_rng(seed)
+    P0 = rng.standard_normal((bodies, 3), dtype=np.float32)
+    V0 = rng.standard_normal((bodies, 3), dtype=np.float32) * 0.1
+    u0 = rng.standard_normal((H, W), dtype=np.float32)
+    u1 = rng.standard_normal((H, W), dtype=np.float32)
+    return u0, u1, P0, V0, 1e-3, 1.0 / bodies
+
+
+PIPELINED_FINAL = [  # (nodes, devs, depth, renaming)
+    (2, 2, 2, False), (2, 2, 2, True), (2, 2, 3, False), (2, 2, 3, True),
+    (3, 1, 2, True)]
+
+
+@pytest.mark.parametrize("H,W,bodies", [(64, 32, 64), (96, 40, 200)])
+@pytest.mark.parametrize("nodes,devs,depth,renaming", PIPELINED_FINAL)
+def test_pipelined_replay_verifies_final(nodes, devs, depth, renaming, H, W,
+                                         bodies):
+    """Fault C6: the schedule of pipelined replays has a happens-before
+    edge between every pair of conflicting accesses, across windows too.
+    On 2 x 2 the memo counts are those of depth 1."""
+    from repro_torch.apps import serve_simulations
+    u0, u1, P0, V0, dt, mass = _sim_inputs(H, W, bodies, H)
+    with port_core.ServingRuntime(nodes, devs, device="cpu", memo=True,
+                                  renaming=renaming, verify="final",
+                                  max_inflight_windows=depth) as srv:
+        out = serve_simulations(srv, u0, u1, P0, V0, wave_windows=40,
+                                nbody_windows=10, dt=dt, mass=mass)
+        s = srv.memo_stats()
+        report = srv.verify_now()
+    assert report.ok and not report.issues
+    if (nodes, devs) == (2, 2):
+        totals, tenants = SERVING_COUNTS[
+            "memo_renaming" if renaming else "memo"]
+        assert (s["hits"], s["misses"], s["unreplayable"]) == totals
+        assert {n: (t["lowered"], t["replayed"])
+                for n, t in s["tenants"].items()} == tenants
+    field, P = _runtime_free(u0, u1, P0, V0, 40, 10, dt, mass)
+    np.testing.assert_array_equal(out["wave"]["field"], field)
+    np.testing.assert_array_equal(out["nbody"]["P"], P)
+
+
+NO_WAIT_REPEATS = 5
+NO_WAIT_WINDOWS = {"wave": 40, "nbody": 10}
+
+
+@pytest.mark.parametrize("renaming", [False, True], ids=["plain", "renaming"])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("tenant", sorted(NO_WAIT_WINDOWS))
+def test_no_wait_tenant_bitwise(tenant, depth, renaming):
+    """Fault C6: a WaveSim (64 x 32, 40 windows) or N-body (200 bodies, 10
+    windows) client that submits every window and drains once.  Each of
+    ``NO_WAIT_REPEATS`` runs (a missing edge shows only when the threads
+    interleave badly) gives the bytes of memo off and of the runtime-free
+    steps."""
+    from repro_torch.apps import serve_simulations
+    u0, u1, P0, V0, dt, mass = _sim_inputs(64, 32, 200, 0)
+    windows = {k: (v if k == tenant else 0)
+               for k, v in NO_WAIT_WINDOWS.items()}
+    field, P = _runtime_free(u0, u1, P0, V0, windows["wave"],
+                             windows["nbody"], dt, mass)
+    want = {"wave": ("field", field), "nbody": ("P", P)}[tenant]
+
+    def run(memo):
+        with port_core.ServingRuntime(2, 2, device="cpu", memo=memo,
+                                      renaming=renaming,
+                                      max_inflight_windows=depth) as srv:
+            out = serve_simulations(srv, u0, u1, P0, V0,
+                                    wave_windows=windows["wave"],
+                                    nbody_windows=windows["nbody"], dt=dt,
+                                    mass=mass, wait=False)
+            replayed = srv.tenants[tenant].replayed_windows
+        return out[tenant][want[0]], replayed
+
+    off, _ = run(False)
+    np.testing.assert_array_equal(off, want[1])
+    for rep in range(NO_WAIT_REPEATS):
+        got, replayed = run(True)
+        # under renaming WaveSim's windows never reach the capture fixpoint
+        # (SERVING_COUNTS), so they all lower cold
+        assert replayed > 0 or (tenant, renaming) == ("wave", True)
+        np.testing.assert_array_equal(got, off, err_msg=f"run {rep}")
+
+
+def _unordered_after_previous_epoch(srv, tenant):
+    """Window ``m`` of ``tenant`` -> (instructions of ``m``, over all nodes,
+    with no path from window ``m - 1``'s epoch in the captured schedule;
+    instructions of ``m``)."""
+    counts = {}
+    for stream in srv.verifier.streams:
+        dependents, epoch, members = {}, {}, {}
+        for s in stream:
+            for d, _ in s.deps:
+                dependents.setdefault(d, []).append(s.instr.iid)
+            i = s.instr
+            if i.tenant == tenant and getattr(i, "window", None) is not None:
+                members.setdefault(i.window, []).append(i.iid)
+                if i.itype == port_core.InstructionType.EPOCH:
+                    epoch[i.window] = i.iid
+        for m, iids in members.items():
+            if m - 1 not in epoch:
+                continue
+            after, todo = set(), [epoch[m - 1]]
+            while todo:
+                for x in dependents.get(todo.pop(), ()):
+                    if x not in after:
+                        after.add(x)
+                        todo.append(x)
+            c = counts.setdefault(m, [0, 0])
+            c[0] += sum(iid not in after for iid in iids)
+            c[1] += len(iids)
+    return counts
+
+
+@pytest.mark.parametrize("tenant,renaming", [("wave", False),
+                                             ("nbody", False),
+                                             ("nbody", True)])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pipelined_replay_keeps_overlap(depth, tenant, renaming):
+    """Pipelining survives the fix: at depth 2 a steady replay of WaveSim
+    or the N-body has no path from the previous window's epoch to any of
+    its instructions but its own epochs (one a node, chained to the
+    previous ones), so each may run beside the previous window as far as
+    its hazard edges allow; at depth 1 every instruction has one."""
+    from repro_torch.apps import serve_simulations
+    u0, u1, P0, V0, dt, mass = _sim_inputs(64, 32, 64, 64)
+    with port_core.ServingRuntime(2, 2, device="cpu", memo=True,
+                                  renaming=renaming, verify="final",
+                                  max_inflight_windows=depth) as srv:
+        serve_simulations(srv, u0, u1, P0, V0, wave_windows=40,
+                          nbody_windows=10, dt=dt, mass=mass)
+        assert srv.verify_now().ok
+        assert srv.tenants[tenant].replayed_windows > 0
+        counts = _unordered_after_previous_epoch(srv, tenant)
+    # the steady windows: the last three replays (the last window of each
+    # tenant is the gather)
+    steady = [counts[m] for m in sorted(counts)[-4:-1]]
+    nodes = 2
+    for free, total in steady:
+        assert free == (0 if depth == 1 else total - nodes), counts
