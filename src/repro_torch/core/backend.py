@@ -30,6 +30,9 @@ Port of ``src/repro/core/backend.py``.  The executor offloads actual work to
   never hung.  Either way its interval then holds host time as well and
   the record says so.  Allocations queue no card work and run ungated.
   An executor without a tracer creates no gates and no timing events.
+* A spans-only tracer gates and times nothing on the card: its lanes leave
+  two host stamps on the item's tag instead, ``_launched_t`` when the
+  item's function has returned and ``_synced_t`` when its work is done.
 * ``HostPool`` — a pool of host worker threads for host tasks and host-side
   copies (no ordering guarantee; used only for *direct* issue).
 
@@ -270,22 +273,36 @@ class InOrderQueue:
     """A FIFO worker thread — the analogue of a SYCL in-order queue.
 
     With a ``stream`` the thread enqueues each item's GPU work on it and
-    waits for that work before pushing the completion; with a ``clock`` and
-    a ``gate`` as well it gates each item and brackets it with timing
-    events."""
+    waits for that work before pushing the completion.  ``mode`` is the
+    executor's trace mode: ``"gated"`` gates each item behind ``gate`` and
+    brackets it with timing events read through ``clock``; ``"spans"``
+    leaves the launch and sync stamps on each item's tag; ``None`` does
+    neither.  The path is chosen here, once."""
 
     def __init__(self, name: str, sink: CompletionSink,
                  stream: Optional[torch.cuda.Stream] = None,
+                 mode: Optional[str] = None,
                  clock: Optional["CardClock"] = None,
                  gate: Optional[CardGate] = None):
+        if mode not in (None, "gated", "spans"):
+            raise ValueError(f"unknown trace mode {mode!r}")
         self.name = name
         self.sink = sink
         self.stream = stream
-        self.clock = clock if stream is not None else None
-        if self.clock is not None:
+        self.clock = None
+        if stream is None:
+            # a host queue queues no card work: nothing to gate or time
+            self._work = (self._run_stamped_host if mode == "spans"
+                          else self._run_host)
+        elif mode == "gated":
+            self.clock = clock
             self._start = torch.cuda.Event(enable_timing=True)
             self._done = torch.cuda.Event(enable_timing=True)
             self._gate = gate
+            self._work = self._run_gated
+        else:
+            self._work = (self._run_stamped if mode == "spans"
+                          else self._run_stream)
         self._q: "queue.SimpleQueue[Optional[WorkItem]]" = queue.SimpleQueue()
         self._pending = 0                   # submitted, not yet completed
         self._lock = threading.Lock()
@@ -310,21 +327,38 @@ class InOrderQueue:
             err: Optional[BaseException] = None
             t0 = time.perf_counter()
             try:
-                if self.stream is None:
-                    item.fn(item.tag)
-                elif self.clock is None:
-                    with torch.cuda.stream(self.stream):
-                        item.fn(item.tag)
-                    done = torch.cuda.Event()
-                    done.record(self.stream)
-                    done.synchronize()
-                else:
-                    self._run_gated(item)
+                self._work(item)
             except BaseException as e:  # noqa: BLE001 — reported to executor
                 err = e
             with self._lock:
                 self._pending -= 1
             self.sink.push(item.tag, err, time.perf_counter() - t0)
+
+    @staticmethod
+    def _run_host(item: WorkItem) -> None:
+        item.fn(item.tag)
+
+    @staticmethod
+    def _run_stamped_host(item: WorkItem) -> None:
+        item.fn(item.tag)
+        item.tag._launched_t = item.tag._synced_t = time.perf_counter()
+
+    def _run_stream(self, item: WorkItem) -> None:
+        with torch.cuda.stream(self.stream):
+            item.fn(item.tag)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        done.synchronize()
+
+    def _run_stamped(self, item: WorkItem) -> None:
+        """``_run_stream`` with the item's launch and sync stamped."""
+        with torch.cuda.stream(self.stream):
+            item.fn(item.tag)
+        item.tag._launched_t = time.perf_counter()
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        done.synchronize()
+        item.tag._synced_t = time.perf_counter()
 
     def _run_gated(self, item: WorkItem) -> None:
         """Run ``item`` behind the gate, between the two timing events, and
@@ -410,14 +444,16 @@ class Backend:
     the queue its dependencies are already on.
 
     ``device_of(d)`` names the torch device behind simulated device ``d``;
-    each queue of a CUDA device owns a stream there.  With ``timed`` those
-    queues gate and time their items on the card, read through ``clock``.
+    each queue of a CUDA device owns a stream there.  ``trace`` is the
+    executor's trace mode (``None``, ``"gated"`` or ``"spans"``, see
+    :class:`InOrderQueue`); under ``"gated"`` those queues gate and time
+    their items on the card, read through ``clock``.
     """
 
     def __init__(self, num_devices: int, *,
                  device_of: Callable[[int], torch.device],
                  queues_per_device: int = 2, host_threads: int = 4,
-                 timed: bool = False):
+                 trace: Optional[str] = None):
         self.sink = CompletionSink()
         self.num_devices = num_devices
         self.queues_per_device = queues_per_device
@@ -426,15 +462,16 @@ class Backend:
             dev = device_of(d)
             return torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
 
+        gated = trace == "gated"
         self.clock = (CardClock(device_of(d) for d in range(num_devices))
-                      if timed else None)
+                      if gated else None)
         streams = [[stream_for(d) for _ in range(queues_per_device)]
                    for d in range(num_devices)]
-        n = sum(s is not None for qs in streams for s in qs) if timed else 0
+        n = sum(s is not None for qs in streams for s in qs) if gated else 0
         gates = iter(CardGate.pinned(n) if n else [])
         self.device_queues: list[list[InOrderQueue]] = [
-            [InOrderQueue(f"D{d}.q{i}", self.sink, s, self.clock,
-                          next(gates) if s is not None and timed else None)
+            [InOrderQueue(f"D{d}.q{i}", self.sink, s, trace, self.clock,
+                          next(gates) if s is not None and gated else None)
              for i, s in enumerate(qs)]
             for d, qs in enumerate(streams)
         ]

@@ -233,10 +233,15 @@ class Executor:
         self.device = device
         self._cuda = device.type == "cuda"
         self._ncards = torch.cuda.device_count() if self._cuda else 1
+        # the tracer's mode (None without one): under "spans" device lanes
+        # stamp launch and sync instead of timing on the card, and completed
+        # epochs keep their time
+        trace_mode = (None if tracer is None
+                      else getattr(tracer, "mode", "gated"))
+        self._stamped = trace_mode == "spans"
         self.backend = Backend(num_devices, device_of=self.device_of,
                                queues_per_device=queues_per_device,
-                               host_threads=host_threads,
-                               timed=tracer is not None)
+                               host_threads=host_threads, trace=trace_mode)
         self.store: dict[int, torch.Tensor] = {}     # allocation id -> tensor
         self.arbiter = ReceiveArbiter(node, comm, self.store)
         self.check_bounds = check_bounds
@@ -295,13 +300,11 @@ class Executor:
         self._retired_count = 0
         self._issued_on: dict[int, InOrderQueue] = {} # iid -> queue (devices)
         self._completed_epochs: set[int] = set()      # command ids of epochs
+        self._epoch_done_t: dict[int, float] = {}     # spans-only tracer
         self.horizons_done = 0                        # completed sync instrs
         self.horizon_event = threading.Event()        # set on each completion
         self._epoch_cv = threading.Condition()
         self._done_count = 0
-        # ready->submitted dispatch latency; bounded so the stat itself does
-        # not grow with program length (retirement bounds everything else)
-        self._issue_latency: deque[float] = deque(maxlen=65536)
         # -- multi-tenant serving (core/memo.py, DESIGN.md §12) -----------
         # Instructions tagged with a tenant name are issued from per-tenant
         # ready queues in round-robin order (fair-share interleaving), with
@@ -383,14 +386,17 @@ class Executor:
             self._inbox.extend(instrs)
         self.backend.sink.event.set()  # wake the loop
 
-    def forget_epoch(self, cid: int) -> None:
-        """Drop a completed epoch id once every waiter has seen it.
+    def forget_epoch(self, cid: int) -> Optional[float]:
+        """Drop a completed epoch id once every waiter has seen it; returns
+        the ``perf_counter`` time of its completion under a spans-only
+        tracer, else None.
 
         A serving process completes an unbounded stream of epochs; the
         serving runtime calls this after its window handle resolves so the
         completed-epoch set stays bounded."""
         with self._epoch_cv:
             self._completed_epochs.discard(cid)
+            return self._epoch_done_t.pop(cid, None)
 
     def wait_epoch(self, cid: int, timeout: float = 60.0) -> None:
         deadline = time.monotonic() + timeout
@@ -617,10 +623,8 @@ class Executor:
         self._retire_log.append(instr)
         self._remaining[instr.iid] = unmet
         if unmet == 0:
-            t = time.perf_counter()
             if self._obs:
-                instr._reg_t = t
-            instr._ready_t = t
+                instr._reg_t = instr._ready_t = time.perf_counter()
             if instr.tenant is None:
                 self._ready.append(instr)
             else:
@@ -705,8 +709,8 @@ class Executor:
                 eager_q = self._eager_queue(instr)
                 if eager_q is not None:
                     del self._blocked[instr.iid]
-                    instr._ready_t = time.perf_counter()
                     if self._obs:
+                        instr._ready_t = time.perf_counter()
                         # eager issue serializes behind its still-pending
                         # deps on one in-order queue: blame the last one
                         for dep, _ in instr.dependencies:
@@ -763,8 +767,6 @@ class Executor:
             tn = instr.tenant
             self._tenant_inflight[tn] = self._tenant_inflight.get(tn, 0) + 1
             instr._admitted = True
-        t = time.perf_counter()
-        self._issue_latency.append(t - instr._ready_t)
         if self._issue_tracer is not None:
             # issue-time visibility (open span): lets live observers see
             # eager issue before the instruction completes; the standard
@@ -772,13 +774,13 @@ class Executor:
             self._issue_tracer.issue(self.node, instr)
         it = instr.itype
         if it in _PEER_WAIT:
-            if self._obs:
-                instr._start_t = t      # arbiter-handled: no lane dequeue
+            if self._obs:               # arbiter-handled: no lane dequeue
+                instr._start_t = time.perf_counter()
             self.arbiter.begin(instr)       # completion via arbiter polling
             return
         if it in (InstructionType.HORIZON, InstructionType.EPOCH):
             if self._obs:
-                instr._start_t = t
+                instr._start_t = time.perf_counter()
             self._mark_done(instr, 0.0)     # pure graph-sync: complete inline
             return
         # with observability on, the lane thread stamps the dequeue time so
@@ -838,8 +840,8 @@ class Executor:
             if dep.iid in blocked:
                 if rem == 0:
                     del blocked[dep.iid]
-                    dep._ready_t = time.perf_counter()
                     if obs:
+                        dep._ready_t = time.perf_counter()
                         # last-arriving predecessor: scalar blame stamps only
                         # (an object reference would chain the whole history
                         # past retirement)
@@ -876,6 +878,9 @@ class Executor:
         if it == InstructionType.EPOCH and instr.command is not None:
             with self._epoch_cv:
                 self._completed_epochs.add(instr.command.cid)
+                if self._stamped:
+                    self._epoch_done_t[instr.command.cid] = \
+                        time.perf_counter()
                 self._epoch_cv.notify_all()
         if it in (InstructionType.HORIZON, InstructionType.EPOCH):
             self._retire_before(instr)
@@ -897,7 +902,8 @@ class Executor:
         clamped); the host's interval, lane dequeue to this drain, goes to
         the tracer beside them.  Host-pool and arbiter instructions, and
         every instruction of an executor without a tracer, keep host
-        stamps.
+        stamps.  Under a spans-only tracer a device lane's record also
+        carries the lane's launch and sync stamps.
         """
         t_done = time.perf_counter()
         card = instr.__dict__.pop("_card_t", None)
@@ -928,12 +934,22 @@ class Executor:
                 self._drops_pending += 1
                 return
             lane = getattr(instr, "trace_lane", None) or f"N{self.node}.{qname}"
+            launched = synced = None
+            if self._stamped:
+                launched = instr.__dict__.pop("_launched_t", None)
+                synced = instr.__dict__.pop("_synced_t", None)
+                if synced is not None:
+                    # keep t_start <= t_launched <= t_synced <= t_done
+                    launched = max(launched, t_start)
+                    synced = max(synced, launched)
+                    t_done = t_host_done = max(t_done, synced)
             self.tracer.record(
                 self.node, instr, lane, t_reg=t_reg, t_ready=t_ready,
                 t_start=t_start, t_done=t_done, wait_cls=cls,
                 blame_iid=getattr(instr, "_blame_iid", None),
                 t_host_start=t_host_start, t_host_done=t_host_done,
-                card_gate=card[2] if card is not None else None)
+                card_gate=card[2] if card is not None else None,
+                t_launched=launched, t_synced=synced)
 
     def _sample_lag(self) -> None:
         """Scheduler-lag time series, sampled at each horizon/epoch: ready-

@@ -106,11 +106,10 @@ from .instructions import (AccessorBinding, Instruction, InstructionType,
 from .lookahead import LookaheadScheduler
 from .observability import MetricsRegistry
 from .reduction import Reduction
-from .runtime import resolve_device
+from .runtime import make_tracer, resolve_device
 from .region import Box, Region, split_box
 from .task_graph import DepKind, TaskGraph, TaskType
 from .verify import ScheduleVerifier
-from .tracing import Tracer
 
 
 # -- window signatures -------------------------------------------------------
@@ -361,8 +360,14 @@ class WindowHandle:
         self._done = False
 
     def wait(self, timeout: float = 60.0) -> None:
+        """Block until the window has run on every node.  A tracer gets a
+        ``serve.wait`` span; under a spans-only tracer its meta
+        ``epoch_done`` is when the last node completed the window."""
         if self._done:
             return
+        tr = self.tenant.srv.tracer
+        t0 = tr.now() if tr is not None else 0.0
+        done = []
         for n, cid in enumerate(self._cids):
             if cid is None:
                 continue
@@ -370,8 +375,14 @@ class WindowHandle:
             ex.wait_epoch(cid, timeout=timeout)
             # a serving process sees an unbounded epoch stream: drop the
             # completion token so executor epoch state stays bounded
-            ex.forget_epoch(cid)
+            t = ex.forget_epoch(cid)
+            if t is not None:
+                done.append(t)
         self._done = True
+        if tr is not None:
+            meta = {"epoch_done": max(done) - tr.epoch} if done else None
+            tr.span(self.tenant.lane, "serve.wait", self.tenant.name, t0,
+                    tr.now(), meta)
 
 
 class Tenant:
@@ -389,6 +400,7 @@ class Tenant:
                  max_queued_windows: int = 8):
         self.srv = srv
         self.name = name
+        self.lane = f"serve.{name}"             # the client's tracer lane
         self.memory_budgets = dict(memory_budgets or {})
         self._lock = threading.RLock()
         self.tdag = TaskGraph(horizon_step=srv.horizon_step,
@@ -571,6 +583,7 @@ class Tenant:
         if (entry is not None and entry.template is not None
                 and not all(a.live for a in entry.template.allocs)):
             entry.template = entry.digest = None
+        tr = srv.tracer
         if (entry is not None and entry.template is not None
                 and entry.template.prev == prev):
             t0 = time.perf_counter()
@@ -578,7 +591,12 @@ class Tenant:
             if m is not None:
                 m.counter("memo.hits")
                 m.counter(f"serve.{self.name}.hits")
-                m.observe("memo.patch_us", (time.perf_counter() - t0) * 1e6)
+            t1 = time.perf_counter()
+            if m is not None:
+                m.observe("memo.patch_us", (t1 - t0) * 1e6)
+            if tr is not None:
+                tr.span(self.lane, "serve.replay", self.name, t0 - tr.epoch,
+                        t1 - tr.epoch)
             if (prev, sig) == self._lowered_key:
                 self._unlowered.clear()
             else:
@@ -589,6 +607,18 @@ class Tenant:
         if m is not None and srv.memo:
             m.counter("memo.misses")
             m.counter(f"serve.{self.name}.misses")
+        if tr is None:
+            return self._run_cold(calls, entry, prev, sig)
+        t0 = tr.now()
+        handle = self._run_cold(calls, entry, prev, sig)
+        tr.span(self.lane, "serve.lower", self.name, t0, tr.now())
+        return handle
+
+    def _run_cold(self, calls: list[_Call], entry: Optional[_CacheEntry],
+                  prev: Optional[tuple], sig: Optional[tuple]) -> WindowHandle:
+        """A memo miss: lower the window, capture it once its lowering
+        has reached the fixpoint, and submit it."""
+        srv, m = self.srv, self.srv.metrics_registry
         self._catch_up()
         node_instrs, node_pilots, cids, tid_to_call = self._lower(calls)
         self._lowered_key = (prev, sig)
@@ -655,6 +685,7 @@ class Tenant:
         epoch_task = tdag.emit_epoch("window")
         tid_to_call = {t.tid: pos for pos, t in enumerate(call_tasks)}
         N = srv.num_nodes
+        tr = srv.tracer
         node_instrs: list[list[Instruction]] = [[] for _ in range(N)]
         cids: list[Optional[int]] = [None] * N
         newly = tdag.tasks[self._sent - tdag._base:]
@@ -663,13 +694,21 @@ class Tenant:
             if task.ttype == TaskType.EPOCH and task.name == "init":
                 continue
             for n in range(N):
-                for cmd in self.cdags[n].process(task):
+                t0 = tr.now() if tr is not None else 0.0
+                cmds = self.cdags[n].process(task)
+                t1 = tr.now() if tr is not None else 0.0
+                for cmd in cmds:
                     if cmd.node != n:
                         continue
                     if (cmd.ctype == CommandType.EPOCH
                             and task is epoch_task):
                         cids[n] = cmd.cid
                     node_instrs[n].extend(self.lookaheads[n].push(cmd))
+                if tr is not None:
+                    meta = {"tid": task.tid, "node": n}
+                    tr.span(self.lane, "sched.cdag", task.name, t0, t1, meta)
+                    tr.span(self.lane, "sched.idag", task.name, t1, tr.now(),
+                            meta)
         tdag.retire_to(self._sent)
         # the window ends in an epoch, so the lookahead flushed completely:
         # each IDAG's pilot list is exactly this window's pilots
@@ -988,7 +1027,7 @@ class ServingRuntime:
                  max_inflight_windows: int = 1,
                  memo_cache_max: Optional[int] = None,
                  renaming: bool = False,
-                 metrics: bool = True, trace: bool = False,
+                 metrics: bool = True, trace: bool | str = False,
                  record_sample: int = 1, reliable: bool = True,
                  verify: str = "off"):
         self.device = resolve_device(device)
@@ -1007,7 +1046,7 @@ class ServingRuntime:
         # memo-template LRU cap per tenant (None = unbounded)
         self.memo_cache_max = memo_cache_max
         self.renaming = renaming
-        self.tracer = Tracer(record_sample=record_sample) if trace else None
+        self.tracer = make_tracer(trace, record_sample=record_sample)
         self.metrics_registry = MetricsRegistry() if metrics else None
         # grid-shape part of every window signature: anything here that
         # changes lowering output MUST invalidate cached windows
@@ -1118,6 +1157,8 @@ class ServingRuntime:
         for ex in self.executors:
             ex.shutdown()
         self.comm.drop_in_flight()
+        if self.tracer is not None:
+            self.tracer.close()
         if self.tracer is not None and self.metrics_registry is not None:
             self.metrics_registry.export_counters(self.tracer)
 

@@ -201,6 +201,11 @@ class InstrRecord:
     (CUDA timing events around the gated item on the lane's stream; see
     ``backend.py``); elsewhere ``card_gate`` is None and the two pairs are
     equal.
+
+    A device lane of a spans-only tracer also gives ``t_launched`` (the
+    item has queued its work) and ``t_synced`` (the lane saw the work
+    finish): ``t_start <= t_launched <= t_synced <= t_done``.  Elsewhere
+    both are None.
     """
 
     node: int
@@ -219,6 +224,8 @@ class InstrRecord:
     t_host_start: float
     t_host_done: float
     card_gate: Optional[str] = None
+    t_launched: Optional[float] = None
+    t_synced: Optional[float] = None
 
     @property
     def on_card(self) -> bool:
@@ -305,6 +312,9 @@ _LAYER_OF = {
     "horizon": "sync", "epoch": "sync",
 }
 
+# the scheduler's lowering spans of one task (critical path, flow arrows)
+SCHED_KINDS = ("sched.cdag", "sched.idag")
+
 _LAYER_ORDER = ("kernel", "comm", "reduce", "memory", "sync", "other",
                 "scheduler", "main")
 
@@ -324,7 +334,8 @@ class CriticalPathReport:
 
     @property
     def scheduler_fraction(self) -> float:
-        """Share of the critical path spent in scheduler lanes (cdag+idag).
+        """Share of the critical path spent lowering in scheduler lanes
+        (``sched.cdag`` + ``sched.idag``; a throttled wait is no lowering).
 
         The paper's off-critical-path claim, quantified: this should stay
         well under 1 for execution-bound programs.
@@ -404,7 +415,7 @@ def critical_path(tracer) -> CriticalPathReport:
             continue
         if s.kind == "task":
             task_spans[tid] = s
-        elif s.kind in ("cdag", "idag") and s.lane.startswith("sched-N"):
+        elif s.kind in SCHED_KINDS and s.lane.startswith("sched-N"):
             node = int(s.lane[len("sched-N"):])
             sched_spans[(node, tid, s.kind)] = s
 
@@ -472,7 +483,7 @@ def critical_path(tracer) -> CriticalPathReport:
         # genuine unexplained wait, and lowering time becomes visible
         account(by_wait, cur.wait_cls, cur.t_reg, cur.t_ready)
         if cur.tid is not None:
-            for kind in ("idag", "cdag"):
+            for kind in ("sched.idag", "sched.cdag"):
                 s = sched_spans.get((cur.node, cur.tid, kind))
                 if s is not None and id(s) not in span_seen:
                     span_seen.add(id(s))

@@ -89,13 +89,14 @@ class _NodeScheduler:
             msg = self.inbox.get()
             if msg is None:
                 return
-            t0 = rt.tracer.now() if rt.tracer else 0.0
+            tr = rt.tracer
+            t0 = tr.now() if tr else 0.0
             if isinstance(msg, _EpochRequest):
                 task = msg.task
             else:
                 task = msg
             cmds = self.cdag.process(task)
-            t1 = rt.tracer.now() if rt.tracer else 0.0
+            t1 = tr.now() if tr else 0.0
             my_epoch_cid: Optional[int] = None
             instrs = []
             for cmd in cmds:
@@ -120,14 +121,16 @@ class _NodeScheduler:
                     1 for i in instrs
                     if i.itype in (InstructionType.HORIZON,
                                    InstructionType.EPOCH))
-                self._throttle()
-            t2 = rt.tracer.now() if rt.tracer else 0.0
-            if rt.tracer:
+            t2 = tr.now() if tr else 0.0
+            waited = bool(instrs) and self._throttle()
+            if tr:
                 meta = {"tid": task.tid}
-                rt.tracer.span(f"sched-N{self.node}", "cdag", task.name,
-                               t0, t1, meta)
-                rt.tracer.span(f"sched-N{self.node}", "idag", task.name,
-                               t1, t2, meta)
+                lane = f"sched-N{self.node}"
+                tr.span(lane, "sched.cdag", task.name, t0, t1, meta)
+                tr.span(lane, "sched.idag", task.name, t1, t2, meta)
+                if waited:
+                    tr.span(lane, "sched.throttle", task.name, t2, tr.now(),
+                            meta)
             self._sample_lag()
             if isinstance(msg, _EpochRequest):
                 msg.futures[self.node].put(my_epoch_cid)
@@ -146,8 +149,9 @@ class _NodeScheduler:
         if rt.tracer is not None:
             rt.tracer.counter(name, lag)
 
-    def _throttle(self) -> None:
-        """Bound scheduler run-ahead to ``max_horizon_lag`` horizon windows.
+    def _throttle(self) -> bool:
+        """Bound scheduler run-ahead to ``max_horizon_lag`` horizon windows;
+        returns whether it waited.
 
         Without this the scheduler can compile arbitrarily far ahead of
         execution, and completed-instruction retirement (which happens when
@@ -159,15 +163,18 @@ class _NodeScheduler:
                      if rt.max_inflight_windows is not None
                      else rt.max_horizon_lag)
         if not lag_limit:
-            return
+            return False
         ex = self.rt.executors[self.node]
+        waited = False
         while (self._horizons_sent - ex.horizons_done) > lag_limit:
             if ex.errors or self.rt._shut:
-                return
+                return waited
             ex.horizon_event.clear()
             if (self._horizons_sent - ex.horizons_done) <= lag_limit:
-                return
+                return waited
             ex.horizon_event.wait(0.01)
+            waited = True
+        return waited
 
     _pilot_cursor = 0
 
@@ -190,6 +197,23 @@ class _NodeScheduler:
         self._thread.join(timeout=10)
 
 
+def make_tracer(trace, **kw) -> Optional[Tracer]:
+    """The tracer of ``trace=``: ``False`` none; ``True`` one whose device
+    lanes time each item on the card behind a gate (mode ``"gated"``);
+    ``"spans"`` one that gates nothing and also records garbage
+    collections until the runtime's shutdown closes it."""
+    if trace not in (False, True, "spans"):
+        raise ValueError(
+            f"trace must be False, True or 'spans', got {trace!r}")
+    if not trace:
+        return None
+    if trace is True:
+        return Tracer(mode="gated", **kw)
+    tracer = Tracer(mode="spans", **kw)
+    tracer.watch_gc()
+    return tracer
+
+
 def resolve_device(device) -> torch.device:
     """``"cuda"`` or ``"cpu"``; a CUDA request without a card raises instead
     of running on the host.  Simulated devices spread over all cards."""
@@ -209,7 +233,7 @@ class Runtime:
     def __init__(self, num_nodes: int = 1, devices_per_node: int = 1, *,
                  device="cuda",
                  lookahead: bool = True, d2d: bool = True,
-                 check_bounds: bool = False, trace: bool = False,
+                 check_bounds: bool = False, trace: bool | str = False,
                  horizon_step: int = 4, queues_per_device: int = 2,
                  host_threads: int = 4, max_horizon_lag: int = 8,
                  device_memory_budget: Optional[int] = None,
@@ -254,7 +278,7 @@ class Runtime:
         self.device_memory_budget = device_memory_budget
         self.memory_budgets = memory_budgets
         self.d2d = d2d
-        self.tracer = Tracer() if trace else None
+        self.tracer = make_tracer(trace)
         # unified metrics registry (DESIGN.md §11): one namespace for
         # executor wait-state histograms, scheduler-lag gauges, memory
         # pressure and transport counters — snapshot via ``metrics()``
@@ -465,7 +489,8 @@ class Runtime:
         at a quiesced epoch.
         """
         if self.tracer is None:
-            raise RuntimeError("critical_path_report() needs Runtime(trace=True)")
+            raise RuntimeError(
+                "critical_path_report() needs Runtime(trace=True or 'spans')")
         return critical_path(self.tracer)
 
     def utilization_report(self) -> dict:
@@ -479,7 +504,8 @@ class Runtime:
         ``Runtime(trace=True)``.
         """
         if self.tracer is None:
-            raise RuntimeError("utilization_report() needs Runtime(trace=True)")
+            raise RuntimeError(
+                "utilization_report() needs Runtime(trace=True or 'spans')")
         with self.tracer._lock:
             records = list(self.tracer.records)
         return lane_utilization(records)
@@ -553,6 +579,8 @@ class Runtime:
         for ex in self.executors:
             ex.shutdown()
         self.comm.drop_in_flight()
+        if self.tracer is not None:
+            self.tracer.close()
         # final registry values become Perfetto counter samples, so the
         # exported trace carries the unified metrics end state
         if self.tracer is not None and self.metrics_registry is not None:

@@ -1,4 +1,5 @@
-# Copied from src/repro/core/tracing.py; edited for card timing (record, lanes).
+# Copied from src/repro/core/tracing.py; edited for card timing (record,
+# lanes), the spans-only mode, garbage collections and the wall clock.
 """Per-instruction timeline capture — reproduces the paper's fig. 7 profiles.
 
 The tracer records timestamped spans for the three concurrent activities the
@@ -6,24 +7,39 @@ paper visualizes: main-thread task submission, scheduler-thread graph
 generation, and per-lane instruction execution.  ``overlap_fraction``
 quantifies how much scheduling work was hidden behind execution — the
 paper's headline qualitative claim for the concurrent architecture.
+
+Two modes.  ``"gated"`` (the default) times each device-lane item on the
+card behind a gate (``backend.CardGate``).  ``"spans"`` gates nothing:
+records keep host stamps, and a device lane also stamps when its item has
+launched and when the card has finished it, from which :meth:`Tracer.lanes`
+derives the lane thread's ``lane.queue``, ``lane.launch`` and ``lane.sync``
+spans and the executor's ``exec.wake``.  Both modes record the runtime's
+own spans (``sched.cdag``, ``sched.idag``, ``sched.throttle``,
+``serve.*``); a runtime's spans-mode tracer also records every garbage
+collection (``gc.gen0``-``gc.gen2`` on lane ``gc``, :meth:`Tracer.watch_gc`).
+:meth:`Tracer.unix_us` puts a tracer time on the wall clock, which is the
+clock of ``torch.profiler``'s Chrome trace.
 """
 
 from __future__ import annotations
 
+import bisect
+import gc
 import json
 import threading
 import time
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Optional
 
-from .observability import InstrRecord
+from .observability import SCHED_KINDS, InstrRecord
 
 
 @dataclass
 class Span:
     lane: str          # "main" | "sched-N0" | "N0.D1.q0" | "N0.host" | ...
-    kind: str          # "task" | "cdag" | "idag" | instruction type
+    kind: str          # "task" | "sched.idag" | "gc.gen2" | instruction type
     name: str
     t0: float
     t1: float
@@ -40,9 +56,20 @@ class Tracer:
     # open-span tracking would only add a lock round-trip per instruction.
     # Duck-typed tracer doubles that want live issue events leave this True.
     issue_events = False
+    # the least time between two anchors of the wall clock (anchor())
+    ANCHOR_GAP_S = 0.1
 
-    def __init__(self, *, record_sample: int = 1) -> None:
+    MODES = ("gated", "spans")
+
+    def __init__(self, *, record_sample: int = 1,
+                 mode: str = "gated") -> None:
+        if mode not in self.MODES:
+            raise ValueError(f"mode must be one of {self.MODES}, got {mode!r}")
         self._lock = threading.Lock()
+        # how device lanes feed the records (see the module docstring):
+        # "gated" times each item on the card, "spans" stamps launch and
+        # sync on the host; executors and backends read it once
+        self.mode = mode
         # 1-in-N InstrRecord capture: with ``record_sample=N > 1`` only every
         # Nth completion is recorded, cutting traced issue overhead at the
         # cost of honestly widened gaps in the critical-path report (the
@@ -62,9 +89,60 @@ class Tracer:
         # the executor's completion path appends exactly one object
         self.records: list[InstrRecord] = []
         self.epoch = time.perf_counter()
+        # anchors of the wall clock: (perf_counter ns, wall clock less
+        # perf_counter in ns), one now and one at each later anchor().
+        # The two clocks need not run at one rate (a host whose wall clock
+        # is being slewed), so unix_us interpolates between anchors.
+        self._anchors: list[tuple[int, int]] = [_clock_pair()]
+        self._unix_at_zero_ns = self._anchors[0][1]
+        self._gc_hook = None
 
     def now(self) -> float:
         return time.perf_counter() - self.epoch
+
+    def anchor(self) -> None:
+        """Read the wall clock against ``perf_counter`` again, so that
+        :meth:`unix_us` follows a difference in their rates up to now (the
+        runtime's shutdown does, through :meth:`close`).  An anchor within
+        ``ANCHOR_GAP_S`` of the last one is not taken: its rate would be
+        noise."""
+        pair = _clock_pair()
+        with self._lock:
+            if pair[0] - self._anchors[-1][0] >= self.ANCHOR_GAP_S * 1e9:
+                self._anchors.append(pair)
+
+    def unix_us(self, t: float, base_ns: int = 0) -> float:
+        """Tracer time ``t`` on the wall clock: microseconds since
+        ``base_ns`` nanoseconds after the Unix epoch.  ``torch.profiler``'s
+        Chrome trace stamps ``(time_ns() - baseTimeNanoseconds) / 1e3``, so
+        with its ``baseTimeNanoseconds`` as ``base_ns`` the result is that
+        trace's ``ts``.  Between two anchors the offset of the two clocks
+        is interpolated; before the first and after the last it is that
+        anchor's."""
+        p = (t + self.epoch) * 1e9
+        anchors = self._anchors
+        i = bisect.bisect_right(anchors, p, key=lambda a: a[0])
+        if i == 0:
+            off = anchors[0][1]
+        elif i == len(anchors):
+            off = anchors[-1][1]
+        else:
+            (p0, o0), (p1, o1) = anchors[i - 1], anchors[i]
+            off = o0 + (p - p0) / (p1 - p0) * (o1 - o0)
+        return (p + (off - base_ns)) / 1e3
+
+    def watch_gc(self) -> None:
+        """Record every garbage collection from now on as a span, until
+        :meth:`close` (a runtime's tracer does, from construction)."""
+        self._gc_hook = _gc_hook(weakref.ref(self))
+        gc.callbacks.append(self._gc_hook)
+        weakref.finalize(self, _remove_gc_hook, self._gc_hook)
+
+    def close(self) -> None:
+        """Stop recording garbage collections and take a last anchor of
+        the wall clock (the runtime's shutdown)."""
+        _remove_gc_hook(self._gc_hook)
+        self.anchor()
 
     def span(self, lane: str, kind: str, name: str, t0: float, t1: float,
              meta: Optional[dict] = None) -> None:
@@ -118,13 +196,17 @@ class Tracer:
     def record(self, node: int, instr, lane: str, *, t_reg: float,
                t_ready: float, t_start: float, t_done: float,
                wait_cls: str, blame_iid: Optional[int], t_host_start: float,
-               t_host_done: float, card_gate: Optional[str] = None) -> None:
+               t_host_done: float, card_gate: Optional[str] = None,
+               t_launched: Optional[float] = None,
+               t_synced: Optional[float] = None) -> None:
         """Append one instruction's full timing record (raw perf_counter
         stamps; converted to tracer-epoch time here).  Replaces the
         issue/complete pair on the executor's hot path: one lock, one
         append, and the fig.-7 execution span is derived lazily.  The
         ``t_host_*`` stamps are the lane thread's interval; with a
-        ``card_gate`` outcome ``t_start``/``t_done`` are the card's."""
+        ``card_gate`` outcome ``t_start``/``t_done`` are the card's.  A
+        device lane in spans-only mode gives ``t_launched`` (its item has
+        returned) and ``t_synced`` (the card has finished the item)."""
         rs = self.record_sample
         if rs > 1 and instr.iid % rs:
             # the keep/drop decision is a pure function of the iid so the
@@ -145,7 +227,9 @@ class Tracer:
             wait_cls, blame_iid,
             task.tid if task is not None else None,
             cmd.cid if cmd is not None else None,
-            t_host_start - e, t_host_done - e, card_gate)
+            t_host_start - e, t_host_done - e, card_gate,
+            None if t_launched is None else t_launched - e,
+            None if t_synced is None else t_synced - e)
         with self._lock:
             self.records.append(rec)
             self._open.pop((node, instr.iid), None)
@@ -174,6 +258,16 @@ class Tracer:
                 meta["card_gate"] = r.card_gate
             out[r.lane].append(Span(r.lane, r.kind, r.name, r.t_start,
                                     r.t_done, meta))
+            if r.t_synced is not None:
+                # the lane thread's and the executor's part of the item
+                thread = "lane-" + r.lane
+                for lane, kind, t0, t1 in (
+                        (thread, "lane.queue", r.t_ready, r.t_start),
+                        (thread, "lane.launch", r.t_start, r.t_launched),
+                        (thread, "lane.sync", r.t_launched, r.t_synced),
+                        (f"exec-N{r.node}", "exec.wake", r.t_synced,
+                         r.t_done)):
+                    out[lane].append(Span(lane, kind, r.name, t0, t1, meta))
         for v in out.values():
             v.sort(key=lambda s: s.t0)
         return out
@@ -226,7 +320,17 @@ class Tracer:
         ("X") events with microsecond timestamps, so the fig.-7-style
         timeline can be inspected interactively in https://ui.perfetto.dev
         (or chrome://tracing).  Returns the number of events written.
+
+        Timestamps are wall-clock microseconds (:meth:`unix_us`) since the
+        tracer's epoch, written as ``baseTimeNanoseconds``, the key under
+        which ``torch.profiler`` writes its own trace's base: ``ts`` plus
+        the base over 1e3 is the same clock in both files.
         """
+        base_ns = round(self.epoch * 1e9) + self._unix_at_zero_ns
+
+        def us(t: float) -> float:
+            return self.unix_us(t, base_ns)
+
         lanes = self.lanes()
         tids = {lane: i + 1 for i, lane in enumerate(sorted(lanes))}
         events: list[dict] = []
@@ -245,7 +349,7 @@ class Tracer:
             for s in spans:
                 ev = {"ph": "X", "pid": 1, "tid": tid,
                       "name": s.name or s.kind, "cat": s.kind,
-                      "ts": s.t0 * 1e6,
+                      "ts": us(s.t0),
                       "dur": max((s.t1 - s.t0) * 1e6, 0.001)}
                 if s.meta:
                     ev["args"] = {k: v for k, v in s.meta.items()
@@ -256,11 +360,11 @@ class Tracer:
                     continue
                 if s.kind == "task" and m.get("tid") is not None:
                     task_src[m["tid"]] = (tid, ev["ts"])
-                elif s.kind in ("cdag", "idag") and lane.startswith("sched-N"):
+                elif s.kind in SCHED_KINDS and lane.startswith("sched-N"):
                     node, ttid = int(lane[len("sched-N"):]), m.get("tid")
                     if ttid is None:
                         continue
-                    if s.kind == "cdag":
+                    if s.kind == "sched.cdag":
                         cdag_dst.append((node, ttid, tid, ev["ts"]))
                         sched_src.setdefault((node, ttid), (tid, ev["ts"]))
                     else:
@@ -304,9 +408,9 @@ class Tracer:
                 if t1 - t0 <= 0:
                     continue
                 events.append({"ph": "b", "pid": 1, "tid": tid, "cat": "wait",
-                               "name": name, "id": wid, "ts": t0 * 1e6})
+                               "name": name, "id": wid, "ts": us(t0)})
                 events.append({"ph": "e", "pid": 1, "tid": tid, "cat": "wait",
-                               "name": name, "id": wid, "ts": t1 * 1e6})
+                               "name": name, "id": wid, "ts": us(t1)})
         # instant events (fault injections, retransmits, aborts) render as
         # thread-scoped markers on their wire/control lane
         with self._lock:
@@ -318,17 +422,17 @@ class Tracer:
                 events.append({"ph": "M", "pid": 1, "tid": tid,
                                "name": "thread_name", "args": {"name": lane}})
             events.append({"ph": "i", "s": "t", "pid": 1, "tid": tid,
-                           "name": name, "ts": t * 1e6, "args": args})
+                           "name": name, "ts": us(t), "args": args})
         # counter tracks (per-memory bytes, …) render as area charts
         with self._lock:
             counters = {k: list(v) for k, v in self.counters.items()}
         for name, samples in counters.items():
             for t, v in samples:
                 events.append({"ph": "C", "pid": 1, "name": name,
-                               "ts": t * 1e6, "args": {"value": v}})
+                               "ts": us(t), "args": {"value": v}})
         with open(path, "w") as f:
-            json.dump({"traceEvents": events,
-                       "displayTimeUnit": "ms"}, f)
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": base_ns}, f)
         return len(events)
 
     def timeline_text(self, width: int = 78) -> str:
@@ -348,3 +452,42 @@ class Tracer:
             lines.append(f"{lane:>16} |{''.join(row)}|")
         lines.append(f"{'':>16}  0{'':{width - 10}}{tmax * 1e3:8.2f}ms")
         return "\n".join(lines)
+
+
+def _gc_hook(tracer_ref):
+    """A ``gc.callbacks`` hook that records each collection as a span of
+    the tracer behind ``tracer_ref`` (held weakly: the hook keeps no
+    tracer alive).  It appends without the tracer's lock, which the
+    collecting thread may hold already; ``list.append`` is atomic."""
+    start = [0.0]
+
+    def hook(phase: str, info: dict) -> None:
+        if phase == "start":
+            start[0] = time.perf_counter()
+            return
+        tr = tracer_ref()
+        if tr is None:
+            return
+        kind = f"gc.gen{info['generation']}"
+        tr.spans.append(Span("gc", kind, kind, start[0] - tr.epoch,
+                             time.perf_counter() - tr.epoch,
+                             {"collected": info["collected"]}))
+    return hook
+
+
+def _clock_pair() -> tuple[int, int]:
+    """``(perf_counter ns, wall clock less perf_counter ns)`` from the
+    tightest of a few back-to-back readings of both clocks."""
+    best = None
+    for _ in range(8):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, unix - (a + b) // 2)
+    return best[1], best[2]
+
+
+def _remove_gc_hook(hook) -> None:
+    if hook in gc.callbacks:
+        gc.callbacks.remove(hook)

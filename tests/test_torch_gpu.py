@@ -269,6 +269,37 @@ def test_records_carry_card_time(cuda):
         assert r.t_done - r.t_start > 1e-4
 
 
+def test_spans_mode_stamps_launch_and_sync_without_gates(cuda):
+    """``trace="spans"`` gates and times nothing on the card: a kernel that
+    sleeps about 5 ms on the card returns from its launch at once, and its
+    lane waits for it in ``lane.sync``."""
+    with Runtime(1, 1, trace="spans", device="cuda") as rt:
+        X = rt.buffer((4,), init=np.zeros(4), name="X")
+
+        def spin(chunk, xv):
+            torch.cuda._sleep(10_000_000)
+            xv.set(chunk, xv.get(chunk) + 1)
+
+        for i in range(3):
+            rt.submit(f"spin{i}", (4,), [read_write(X, one_to_one())], spin)
+        out = rt.gather(X)
+        ex = rt.executors[0]
+        assert ex.backend.clock is None
+        assert all(q._work == q._run_stamped
+                   for qs in ex.backend.device_queues for q in qs)
+        assert sum(ex.card_gates.values()) == 0
+        recs = [r for r in rt.tracer.records if r.kind == "device_kernel"]
+    np.testing.assert_array_equal(out, np.full(4, 3.0))
+    assert len(recs) == 3
+    for r in recs:
+        assert not r.on_card
+        assert (r.t_ready <= r.t_start <= r.t_launched <= r.t_synced
+                <= r.t_done)
+        assert r.t_synced - r.t_launched > 2e-3
+    last = recs[-1]
+    assert last.t_launched - last.t_start < last.t_synced - last.t_launched
+
+
 def test_card_records_leave_host_time_out(cuda):
     """The gate holds the lane's stream until the item has queued all of
     its work: an item that sleeps 20 ms on the host between two small card

@@ -520,3 +520,234 @@ def test_instr_record_defaults_host_interval():
     with pytest.raises(TypeError):
         InstrRecord(0, 1, "device_kernel", "N0.device.0", "k", 0.0, 0.1, 0.2,
                     0.3, "dep", None, None, None)
+
+
+# -- spans-only tracing ------------------------------------------------------------
+def _spans_program(rt, steps=4, sleep_s=0.0):
+    a = rt.buffer((64, 64), init=np.ones((64, 64)), name="A")
+
+    def scale(chunk, av):
+        if sleep_s:
+            import time
+            time.sleep(sleep_s)
+        av.set(chunk, av.get(chunk) * 1.001)
+
+    for i in range(steps):
+        rt.submit(f"scale{i}", (64, 64), [read_write(a, one_to_one())],
+                  scale)
+    rt.sync()
+    return rt
+
+
+def _kinds(tracer):
+    out = {}
+    for spans in tracer.lanes().values():
+        for s in spans:
+            out[s.kind] = out.get(s.kind, 0) + 1
+    return out
+
+
+def test_spans_mode_creates_no_gate_and_no_timing_events():
+    with Runtime(1, 2, trace="spans", device="cpu") as rt:
+        assert rt.tracer.mode == "spans"
+        ex = rt.executors[0]
+        assert ex.backend.clock is None
+        for qs in ex.backend.device_queues:
+            for q in qs:
+                assert q.clock is None and not hasattr(q, "_gate")
+                assert not hasattr(q, "_start") and not hasattr(q, "_done")
+                assert q._work == q._run_stamped_host
+    sink = backend.CompletionSink()
+    q = backend.InOrderQueue("D0.q0", sink, stream=object(), mode="spans")
+    try:
+        assert q._work == q._run_stamped and q.clock is None
+        assert not hasattr(q, "_gate") and not hasattr(q, "_start")
+    finally:
+        q.shutdown()
+    assert backend.Backend(1, device_of=lambda d: __import__("torch").device(
+        "cpu"), trace="spans").clock is None
+    with pytest.raises(ValueError):
+        backend.InOrderQueue("D0.q0", sink, mode="timed")
+    with pytest.raises(ValueError):
+        Tracer(mode="timed")
+
+
+def test_trace_modes_choose_their_lane_path_once():
+    paths = {}
+    for trace in (False, True, "spans"):
+        with Runtime(1, 1, trace=trace, device="cpu") as rt:
+            paths[trace] = rt.executors[0].backend.device_queues[0][0]._work
+    assert paths[False].__name__ == paths[True].__name__ == "_run_host"
+    assert paths["spans"].__name__ == "_run_stamped_host"
+    with pytest.raises(ValueError):
+        Runtime(1, 1, trace="gated", device="cpu")
+
+
+def test_spans_records_keep_their_stamps_in_order():
+    with _spans_program(Runtime(2, 2, trace="spans", device="cpu")) as rt:
+        tr = rt.tracer
+    stamped = [r for r in tr.records if r.t_synced is not None]
+    assert stamped and {r.node for r in stamped} == {0, 1}
+    for r in tr.records:
+        assert not r.on_card
+        if ".device." in r.lane or r.lane.split(".")[1] == "device":
+            assert r.t_launched is not None, r
+        if r.t_synced is None:
+            assert r.t_launched is None
+            continue
+        assert (r.t_reg <= r.t_ready <= r.t_start <= r.t_launched
+                <= r.t_synced <= r.t_done), r
+    kinds = _kinds(tr)
+    for kind in ("lane.queue", "lane.launch", "lane.sync", "exec.wake"):
+        assert kinds[kind] == len(stamped), kind
+    assert kinds["sched.cdag"] == kinds["sched.idag"] > 0
+    util = rt.utilization_report()
+    assert util["span_us"] > 0
+    assert 0.0 <= rt.critical_path_report().scheduler_fraction <= 1.0
+
+
+def test_gated_records_have_no_lane_stamps(traced):
+    assert all(r.t_launched is None and r.t_synced is None
+               for r in traced.tracer.records)
+    assert "lane.launch" not in _kinds(traced.tracer)
+
+
+def test_throttle_has_its_own_span_outside_the_lowering_span():
+    """With ``max_horizon_lag=1`` and a slow kernel the scheduler waits at
+    its run-ahead limit: ``sched.throttle`` spans, each after the
+    ``sched.idag`` span of its task, and the critical path counts no
+    waiting as lowering."""
+    with _spans_program(Runtime(1, 1, trace="spans", device="cpu",
+                                max_horizon_lag=1, horizon_step=1),
+                        steps=8, sleep_s=0.02) as rt:
+        tr = rt.tracer
+        rep = rt.critical_path_report()
+    spans = [s for ss in tr.lanes().values() for s in ss]
+    throttle = [s for s in spans if s.kind == "sched.throttle"]
+    assert throttle
+    idag = {s.meta["tid"]: s for s in spans if s.kind == "sched.idag"}
+    for s in throttle:
+        assert s.lane == "sched-N0"
+        assert idag[s.meta["tid"]].t1 <= s.t0 + 1e-9
+    waited = sum(s.t1 - s.t0 for s in throttle)
+    lowered = sum(s.t1 - s.t0 for s in idag.values())
+    assert waited > 0.05 > lowered
+    assert rep.by_layer.get("scheduler", 0.0) <= (
+        lowered + sum(s.t1 - s.t0 for s in spans
+                      if s.kind == "sched.cdag")) * 1e6 + 1.0
+
+
+def test_gc_collections_are_spans_until_shutdown():
+    import gc
+    n = len(gc.callbacks)
+    rt = Runtime(1, 1, trace="spans", device="cpu")
+    assert len(gc.callbacks) == n + 1
+    gc.collect()
+    spans = [s for s in rt.tracer.lanes().get("gc", [])
+             if s.kind == "gc.gen2"]
+    assert spans and spans[-1].t0 <= spans[-1].t1
+    assert spans[-1].meta["collected"] >= 0
+    rt.shutdown()
+    assert len(gc.callbacks) == n
+    before = len(rt.tracer.spans)
+    gc.collect()
+    assert len(rt.tracer.spans) == before
+    with Runtime(1, 1, device="cpu"):
+        assert len(gc.callbacks) == n            # no tracer, no hook
+    with Runtime(1, 1, trace=True, device="cpu"):
+        assert len(gc.callbacks) == n            # nor a gated one
+    Tracer()
+    assert len(gc.callbacks) == n                # nor a bare tracer
+
+
+def test_tracer_stamp_converts_to_the_profiler_clock(tmp_path):
+    """A tracer stamp taken next to a main-thread ``record_function``
+    converts, through the trace's ``baseTimeNanoseconds``, to within 2 ms
+    of that span's ``ts`` (median of 20 pairs)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    tr = Tracer()
+    stamps = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(20):
+            stamps.append(tr.now())
+            with record_function(f"probe{i}"):
+                pass
+    tr.close()
+    path = tmp_path / "p.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = data["baseTimeNanoseconds"]
+    ts = {e["name"]: e["ts"] for e in data["traceEvents"]
+          if e.get("ph") == "X" and e["name"].startswith("probe")}
+    off = sorted(abs(tr.unix_us(t, base) - ts[f"probe{i}"])
+                 for i, t in enumerate(stamps))
+    assert off[len(off) // 2] < 2000.0
+
+
+def test_wall_clock_anchors_follow_a_rate_difference():
+    """Where the wall clock runs at another rate than ``perf_counter``,
+    ``unix_us`` interpolates the offset between two anchors, holds the
+    first before it and the last after it, and ``anchor()`` takes no
+    anchor within ``ANCHOR_GAP_S`` of the last."""
+    tr = Tracer()
+    p0 = round(tr.epoch * 1e9)
+    # the wall clock gains 5 ms over the 1 s after the epoch (5000 ppm)
+    tr._anchors = [(p0, 0), (p0 + 10**9, 5_000_000)]
+    assert tr.unix_us(0.0) == pytest.approx(p0 / 1e3, abs=1e-3)
+    assert tr.unix_us(0.5) == pytest.approx(p0 / 1e3 + 0.5e6 + 2_500,
+                                            abs=1e-3)
+    assert tr.unix_us(1.0) == pytest.approx(p0 / 1e3 + 1e6 + 5_000,
+                                            abs=1e-3)
+    assert tr.unix_us(2.0) == pytest.approx(p0 / 1e3 + 2e6 + 5_000,
+                                            abs=1e-3)
+    assert tr.unix_us(-1.0) == pytest.approx(p0 / 1e3 - 1e6, abs=1e-3)
+    fresh = Tracer()
+    fresh.anchor()
+    assert len(fresh._anchors) == 1           # within ANCHOR_GAP_S
+    fresh._anchors[0] = (fresh._anchors[0][0] - 10**9, fresh._anchors[0][1])
+    fresh.close()
+    assert len(fresh._anchors) == 2           # the shutdown's anchor
+
+
+def test_chrome_trace_export_is_on_the_wall_clock(tmp_path):
+    """The export's ``ts`` are tracer times in microseconds, from a
+    ``baseTimeNanoseconds`` that puts them on the wall clock, as a
+    ``torch.profiler`` trace's are."""
+    import time
+    tr = Tracer()
+    tr.close()
+    tr.span("sched-N0", "sched.idag", "t", 1e-3, 2e-3, {"tid": 1})
+    out = tmp_path / "t.json"
+    tr.to_chrome_trace(out)
+    data = json.loads(out.read_text())
+    (ev,) = [e for e in data["traceEvents"] if e["ph"] == "X"]
+    assert ev["ts"] == pytest.approx(1e3, abs=1e-3)
+    base = data["baseTimeNanoseconds"]
+    assert ev["ts"] + base / 1e3 == pytest.approx(tr.unix_us(1e-3), abs=1.0)
+    assert abs(base / 1e9 - time.time()) < 5.0
+    base = time.time_ns() - 10**15        # as a profiler's base, days back
+    assert tr.unix_us(1e-3, base) - tr.unix_us(0.0, base) == pytest.approx(
+        1e3, abs=1e-3)
+
+
+def test_serving_spans_and_window_completion():
+    from repro_torch.core import ServingRuntime
+    with ServingRuntime(2, 1, trace="spans", device="cpu") as srv:
+        t = srv.tenant("sim")
+        a = t.buffer((32,), init=np.zeros(32), name="a")
+        for _ in range(5):
+            t.submit("inc", (32,), [read_write(a, one_to_one())],
+                     lambda c, v: v.set(c, v.get(c) + 1))
+            t.run().wait()
+        tr = srv.tracer
+        assert not srv.executors[0]._epoch_done_t   # dropped when seen
+    spans = tr.lanes()["serve.sim"]
+    kinds = {s.kind for s in spans}
+    assert {"serve.wait", "serve.lower", "serve.replay", "sched.cdag",
+            "sched.idag"} <= kinds
+    waits = [s for s in spans if s.kind == "serve.wait"]
+    assert len(waits) == 5
+    for s in waits:
+        assert s.meta["epoch_done"] <= s.t1
+    assert max(s.t1 for s in waits) <= tr.now()
+
