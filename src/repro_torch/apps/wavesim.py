@@ -12,15 +12,20 @@ import numpy as np
 
 from ..core import (Box, Runtime, neighborhood, one_to_one, read, reduction,
                     write)
-from ..kernels.stencil5 import wave_step_rows
+from ..kernels.stencil5 import wave_step_rows, writing_into
 
 
 def make_step_kernel(H: int, W: int, c: float):
-    """Device kernel of one wave step over the rows of its chunk."""
+    """Device kernel of one wave step over the rows of its chunk.  B2
+    writes the step straight into the chunk's rows of ``un``'s allocation;
+    the ``set`` that follows is then a copy onto itself, which ATen skips,
+    and stores a step that came back as a fresh tensor."""
     def step_kernel(chunk, um_v, u_v, un_v):
         lo, hi = chunk.min[0], chunk.max[0]
         ext = Box((max(0, lo - 1), 0), (min(H, hi + 1), W))
-        un_v.set(chunk, wave_step_rows(um_v.get(chunk), u_v.get(ext), lo, H, c))
+        with writing_into(un_v.get(chunk)):
+            new = wave_step_rows(um_v.get(chunk), u_v.get(ext), lo, H, c)
+        un_v.set(chunk, new)
     return step_kernel
 
 

@@ -12,6 +12,7 @@ numpy closures, so the reference's energies are taken on the port's own
 state.
 """
 
+import contextlib
 import importlib.util
 import math
 from pathlib import Path
@@ -25,10 +26,15 @@ from repro.core import (all_range, neighborhood, one_to_one, read,
                         read_write, reduction, write)
 from repro.core.collective import allreduce_message_count
 from repro.core.region import Box
-from repro_torch.apps import NBody, WaveSim, body_energies, run_rsim
+from repro_torch.apps import (NBody, WaveSim, body_energies, run_rsim,
+                              serve_simulations)
 from repro_torch.apps import nbody as port_nbody
 from repro_torch.apps import wavesim as port_wavesim
-from repro_torch.core import Runtime
+from repro_torch.core import Box as PortBox
+from repro_torch.core import Runtime, ServingRuntime
+from repro_torch.core.executor import BufferView
+from repro_torch.core.allocation import Allocation
+from repro_torch.kernels.stencil5 import wave_step_rows
 from torch_parity import keep_reference_ids  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -254,6 +260,78 @@ def test_wave_residual(nodes, devices):
     assert port_s == ref_s
     assert res2 == math.fsum(((field - prev) ** 2).ravel())
     assert res2 > 0 and abs(res2 - ref) <= 1e-6 * ref
+
+
+# -- B2 writes each step into the new field's allocation -------------------------------
+@pytest.mark.parametrize("nodes,devices", [(1, 1), (2, 2)])
+def test_wave_steps_write_into_the_field(monkeypatch, nodes, devices):
+    """Every chunk of every step lands in ``un``'s own allocation
+    (``in_place`` grows by one a chunk a step), and the fields and residual
+    are bit for bit those of steps stored by ``BufferView.set`` from a fresh
+    tensor, the path without the destination."""
+    u0, u1 = _splash()
+
+    def run():
+        with Runtime(nodes, devices, device="cpu", **QUIET) as rt:
+            sim = WaveSim(rt, u0, u1)
+            n0 = wave_step_rows.in_place
+            sim.advance(WAVE_STEPS)
+            sim.residual()
+            out = (sim.gather(), sim.gather_previous(), sim.residual_value())
+            return out, wave_step_rows.in_place - n0
+
+    (field, prev, res2), n = run()
+    assert n == WAVE_STEPS * nodes * devices
+    monkeypatch.setattr(port_wavesim, "writing_into",
+                        lambda dst: contextlib.nullcontext())
+    (field0, prev0, res0), n0 = run()
+    assert n0 == 0
+    np.testing.assert_array_equal(field, field0)
+    np.testing.assert_array_equal(prev, prev0)
+    assert res2 == res0
+
+
+def test_buffer_view_set_with_its_own_view_leaves_the_field():
+    """What the step kernel does after B2 wrote in place: ``set`` of a chunk
+    with the view ``get`` gave of it, in an allocation that starts at row 2."""
+    class _Binding:
+        region = None
+
+        class accessor:
+            class mode:
+                is_producer = True
+
+    t = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    want = t.clone()
+    v = BufferView(t, Allocation(mid=2, bid=None, box=PortBox((2, 0), (8, 4))),
+                   _Binding, check_bounds=False)
+    box = PortBox((3, 0), (6, 4))
+    own = v.get(box)
+    v.set(box, own)
+    assert own.data_ptr() == t[1:4].data_ptr()
+    assert torch.equal(t, want)
+
+
+@pytest.mark.parametrize("wait,depth", [(True, 1), (False, 2)])
+def test_served_wave_tenant_replays_in_place(wait, depth):
+    """A WaveSim tenant of ``ServingRuntime(2, 2)``, 40 windows, memo on:
+    replayed windows write in place like lowered ones (four chunks a
+    window), and the field is that of the runtime-free steps bit for bit."""
+    rng = np.random.default_rng(40)
+    u0 = rng.standard_normal((64, 32), dtype=np.float32)
+    u1 = rng.standard_normal((64, 32), dtype=np.float32)
+    n0 = wave_step_rows.in_place
+    with ServingRuntime(2, 2, device="cpu", memo=True,
+                        max_inflight_windows=depth) as srv:
+        out = serve_simulations(srv, u0, u1, None, None, wave_windows=40,
+                                nbody_windows=0, dt=1e-3, mass=1.0, wait=wait)
+        replayed = srv.tenants["wave"].replayed_windows
+    assert replayed > 0
+    assert wave_step_rows.in_place - n0 == 40 * 4
+    um, u = torch.from_numpy(u0), torch.from_numpy(u1)
+    for _ in range(40):
+        um, u = u, wave_step_rows(um, u, 0, 64)
+    np.testing.assert_array_equal(out["wave"]["field"], u.numpy())
 
 
 # -- budget demos ----------------------------------------------------------------------

@@ -756,6 +756,52 @@ def test_wave_residual_equals_fsum_on_card(cuda):
     assert res2 == math.fsum(((field - prev) ** 2).ravel())
 
 
+def test_wave_steps_write_in_place_on_card(cuda):
+    """A 1 x 1 WaveSim of 4096^2 float32: after a warm-up step, ten steps
+    allocate no more than 1 MiB beyond the three fields (B2 writes into the
+    new field's allocation, no temporary), copy nothing from device to
+    device, and give the field of the runtime-free steps (bit for bit) and
+    of ``wave_step_rows_plain``'s (to B2's one-step tolerance)."""
+    H = W = 4096
+    steps = 10
+    rng = np.random.default_rng(41)
+    u0 = rng.standard_normal((H, W), dtype=np.float32)
+    u1 = rng.standard_normal((H, W), dtype=np.float32)
+    fields = 3 * u0.nbytes
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with Runtime(1, 1) as rt:
+        sim = WaveSim(rt, u0, u1)
+        sim.advance(1)
+        rt.sync()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - base >= fields
+        torch.cuda.reset_peak_memory_stats()
+        n0, i0 = wave_step_rows.launches, wave_step_rows.in_place
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            sim.advance(steps)
+            rt.sync()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert wave_step_rows.launches - n0 == steps
+        assert wave_step_rows.in_place - i0 == steps
+        field = sim.gather()
+    assert peak <= fields + 2**20, (peak, fields)
+    names = [e.name for e in prof.events()]
+    assert any("wave_rows_kernel" in n for n in names), sorted(set(names))
+    assert not any("Memcpy DtoD" in n for n in names), sorted(set(names))
+    um, u = torch.from_numpy(u0).to(cuda), torch.from_numpy(u1).to(cuda)
+    pm, p = um, u
+    for _ in range(steps + 1):
+        um, u = u, wave_step_rows(um, u, 0, H)
+        pm, p = p, wave_step_rows_plain(pm, p, 0, H)
+    np.testing.assert_array_equal(field, u.cpu().numpy())
+    torch.testing.assert_close(torch.from_numpy(field), p.cpu(),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_rsim_allocations_on_card_equal_cpu(cuda):
     runs = {(d, la): run_rsim(32, 8192, lookahead=la, dtype=np.float32,
                               device=d)

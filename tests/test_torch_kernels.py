@@ -7,6 +7,7 @@ kernels themselves are checked against those plain versions on the card
 """
 
 import re
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.nbody import (nbody_forces_rows,
                                        nbody_forces_rows_plain)
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
-                                          wave_step_rows_plain)
+                                          wave_step_rows_plain, writing_into)
 from torch_parity import keep_reference_ids  # noqa: F401
 
 
@@ -117,6 +118,84 @@ def test_wave_rejects_wrong_halo(rows_ext):
     # chunk [4, 8) of 16 rows needs exactly one halo row on each side
     with pytest.raises(ValueError):
         wave_step_rows(torch.zeros(4, 8), torch.zeros(rows_ext, 8), 4, 16)
+
+
+@pytest.mark.parametrize("H,W,cuts", [(64, 32, []), (64, 32, [16, 32, 48]),
+                                      (37, 9, [1, 13, 36])])
+def test_wave_writes_into_destination(H, W, cuts):
+    """Under ``writing_into`` each chunk's step lands in its rows of a field
+    the caller owns, as in the runtime's allocation, and the call returns
+    those rows themselves, bit for bit the fresh-tensor result."""
+    rng = np.random.default_rng(7)
+    um = torch.from_numpy(rng.normal(size=(H, W)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(H, W)).astype(np.float32))
+    field = torch.full((H, W), float("nan"))
+    n0 = wave_step_rows.in_place
+    for lo, hi in _chunks(H, cuts):
+        top, bottom = halo_rows(lo, hi - lo, H)
+        args = (um[lo:hi], u[lo - top:hi + bottom], lo, H)
+        with writing_into(field[lo:hi]):
+            out = wave_step_rows(*args)
+        assert out.data_ptr() == field[lo:hi].data_ptr()
+        assert torch.equal(out, wave_step_rows_plain(*args))
+    assert wave_step_rows.in_place == n0 + len(cuts) + 1
+    assert torch.equal(field, wave_step_rows(um, u, 0, H))
+
+
+# destinations the step must not write for the chunk [4, 12) of 24 rows,
+# given um [16, 10] and u [24, 10]: none is a field's own rows it may fill
+REFUSED = {"non_contiguous": lambda um, u: torch.zeros(8, 12)[:, :10],
+           "transposed": lambda um, u: torch.zeros(10, 8).t(),
+           "wrong_shape": lambda um, u: torch.zeros(7, 10),
+           "wrong_dtype": lambda um, u: torch.zeros(8, 10, dtype=torch.float64),
+           "overlaps_um": lambda um, u: um[4:12],
+           "overlaps_u_ext": lambda um, u: u[5:13],
+           "overlaps_u_ext_partly": lambda um, u: u[12:20]}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_wave_refuses_destination(case):
+    """A destination that is not contiguous, has another shape or dtype, or
+    shares bytes with ``um_chunk`` or ``u_ext`` is left alone: the result is
+    a fresh tensor and ``in_place`` does not count."""
+    rng = np.random.default_rng(8)
+    um = torch.from_numpy(rng.normal(size=(16, 10)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(24, 10)).astype(np.float32))
+    dst = REFUSED[case](um, u)
+    before = dst.clone()
+    # chunk [4, 12) of 24 rows: um's rows 4..12, u_ext = u[3:13]
+    args = (um[4:12], u[3:13], 4, 24)
+    n0 = wave_step_rows.in_place
+    with writing_into(dst):
+        out = wave_step_rows(*args)
+    assert out.data_ptr() != dst.data_ptr()
+    assert torch.equal(out, wave_step_rows_plain(*args))
+    assert torch.equal(dst, before)
+    assert wave_step_rows.in_place == n0
+
+
+def test_wave_destination_hint_stays_in_its_scope_and_thread():
+    """The hint holds only inside its ``with`` block (nested blocks restore
+    the outer one, also when the block raises), and only on its thread."""
+    um, u = torch.ones(8, 6), torch.rand(8, 6)
+    outer, inner = torch.zeros(8, 6), torch.zeros(8, 6)
+    seen = []
+
+    def step():
+        return wave_step_rows(um, u, 0, 8)
+    with writing_into(outer):
+        thread = threading.Thread(target=lambda: seen.append(step()))
+        thread.start()
+        thread.join(timeout=30)
+        assert not thread.is_alive()
+        with pytest.raises(KeyError), writing_into(inner):
+            assert step() is inner
+            raise KeyError
+        assert step() is outer
+    fresh = step()
+    assert seen[0].data_ptr() not in (outer.data_ptr(), inner.data_ptr())
+    assert fresh.data_ptr() not in (outer.data_ptr(), inner.data_ptr())
+    assert torch.equal(fresh, outer) and torch.equal(seen[0], outer)
 
 
 # -- wrappers, binding, build -----------------------------------------------------
