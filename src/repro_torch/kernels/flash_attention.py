@@ -3,8 +3,8 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py:_kernel``
 (``flash_attention_tpu``).  ``q`` is ``[B, S, K, G, hd]`` (``G`` query heads
 per KV head) and ``k``/``v`` are ``[B, T, K, hd]``; the result has ``q``'s
-shape and dtype.  Scale ``1/sqrt(hd)``, causal and sliding-window masks with
-``-1e30``, an online softmax with ``m``, ``l`` and the accumulator in f32,
+shape and dtype.  Scale ``scale`` (``1/sqrt(hd)`` unless given), causal and
+sliding-window masks with ``-1e30``, an online softmax with ``m``, ``l`` and the accumulator in f32,
 and the decode ``q_offset`` (query ``i`` sits at position ``i + q_offset``).
 
 With ``return_lse`` the wrapper also gives each query row's logsumexp,
@@ -66,6 +66,11 @@ _MAX_GRID_Y, _MAX_GRID_X = 65535, 2**31 - 1
 _count_lock = threading.Lock()
 
 
+def default_scale(hd: int, scale: Optional[float] = None) -> float:
+    """``scale``, or ``1/sqrt(hd)`` where it is None."""
+    return 1.0 / math.sqrt(hd) if scale is None else float(scale)
+
+
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 window: Optional[int], q_offset: int) -> None:
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
@@ -96,7 +101,8 @@ def _block_mask(q0: int, k0: int, nq: int, nk: int, T: int, causal: bool,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: Optional[int] = None,
-                          q_offset: int = 0, return_lse: bool = False):
+                          q_offset: int = 0, return_lse: bool = False,
+                          scale: Optional[float] = None):
     """Plain PyTorch version: the JAX reference's blockwise online softmax
     (query blocks of 512, key blocks of 1024), logits in f32 from exact
     f32 products, probabilities rounded to ``v``'s dtype before the second
@@ -105,7 +111,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_args(q, k, v, window, q_offset)
     B, S, K, G, hd = q.shape
     T = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = default_scale(hd, scale)
     qf, kf = q.float(), k.float()
     out = torch.empty_like(q)
     lse = torch.empty((B, K, G, S), device=q.device)
@@ -141,7 +147,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True,
                              window: Optional[int] = None,
-                             q_offset: int = 0):
+                             q_offset: int = 0,
+                             scale: Optional[float] = None):
     """Gradients ``(dq, dk, dv)`` of attention from the forward's ``out`` and
     ``lse``: the FA2 backward of ``ref._flash_bwd`` in plain PyTorch, over
     the same blocks (key blocks of 1024 outer, query blocks of 512 inner),
@@ -150,7 +157,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     empties are skipped (they add zeros in the reference)."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = default_scale(hd, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     # D_i = rowsum(dout * out)  [B,K,G,S]
     D = torch.einsum("bskgh,bskgh->bkgs", out.float(), dof)
@@ -181,7 +188,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int], q_offset: int, want_lse: bool):
+            window: Optional[int], q_offset: int, want_lse: bool,
+            scale: Optional[float] = None):
     """Kernel B3 on the current stream: ``(out, lse)``, ``lse`` None unless
     ``want_lse``; through the custom op ``repro_torch::flash_attention_fwd``
     unless ``_build.direct``.  On fake tensors (a dry-run's trace) the op
@@ -211,7 +219,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             raise ValueError(f"kernel takes a contiguous {name}")
     launch = (_flash_attention_fwd_kernel if _build.direct(q, k, v)
               else torch.ops.repro_torch.flash_attention_fwd)
-    out, lse = launch(q, k, v, causal, window or 0, q_offset, want_lse)
+    out, lse = launch(q, k, v, causal, window or 0, q_offset, want_lse,
+                      scale)
     return out, (lse if want_lse else None)
 
 
@@ -226,7 +235,8 @@ def _lse_shape(q_shape, want_lse: bool) -> tuple:
 
 def _flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, causal: bool, window: int,
-                                q_offset: int, want_lse: bool):
+                                q_offset: int, want_lse: bool,
+                                scale: Optional[float] = None):
     """The launch of kernel B3 (``window`` 0 for none; ``lse`` empty unless
     ``want_lse``).  Adds one to ``flash_attention.launches``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -242,7 +252,7 @@ def _flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if want_lse else None,
-                 B, S, T, K, G, hd, ctypes.c_float(1.0 / math.sqrt(hd)),
+                 B, S, T, K, G, hd, ctypes.c_float(default_scale(hd, scale)),
                  int(causal), window, q_offset, stream)
     _build.check(err, "flash_attention launch")
     with _count_lock:
@@ -254,13 +264,14 @@ def _flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
                          device_types="cuda")
 def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, window: int, q_offset: int,
-                         want_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                         want_lse: bool, scale: Optional[float] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     return _flash_attention_fwd_kernel(q, k, v, causal, window, q_offset,
-                                       want_lse)
+                                       want_lse, scale)
 
 
 @_flash_attention_fwd.register_fake
-def _(q, k, v, causal, window, q_offset, want_lse):
+def _(q, k, v, causal, window, q_offset, want_lse, scale=None):
     return (torch.empty_like(q),
             q.new_empty(_lse_shape(q.shape, want_lse), dtype=torch.float32))
 
@@ -285,19 +296,20 @@ def unmasked_pairs(S: int, T: int, causal: bool, window: int,
 def _flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset,
                  want_lse, *args, out_shape=None, **kwargs) -> int:
     """``4 B H hd`` per unmasked pair (``Q K^T`` and ``P V``), as PERF.md's
-    bound counts B3's work."""
+    bound counts B3's work, whatever the scale."""
     B, S, K, G, hd = q_shape
     return 4 * B * K * G * hd * unmasked_pairs(S, k_shape[1], causal, window,
                                                q_offset)
 
 
 @register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
-def _flash_sharding(q, k, v, causal, window, q_offset, want_lse):
+def _flash_sharding(q, k, v, causal, window, q_offset, want_lse,
+                    scale=None):
     """Per mesh dim: replicated, batch-sharded, or KV-head-sharded where
     every mesh dim divides the KV heads (``out`` as ``q``; ``lse``
     ``[B,K,G,S]``)."""
     R = Replicate()
-    rest = [None] * 4
+    rest = [None] * 5
     out = [([R, R], [R, R, R] + rest),
            ([Shard(0), Shard(0)], [Shard(0)] * 3 + rest)]
     if all(q.shape[2] % n == 0 for n in q.mesh.shape):
@@ -310,24 +322,24 @@ class _FlashAttention(torch.autograd.Function):
     blockwise backward.  ``lse`` is an output without a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              window=window, q_offset=q_offset,
-                                             return_lse=True)
+                                             return_lse=True, scale=scale)
         else:
-            out, lse = _launch(q, k, v, causal, window, q_offset, True)
+            out, lse = _launch(q, k, v, causal, window, q_offset, True, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, q_offset)
+        ctx.mask = (causal, window, q_offset, scale)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, q_offset = ctx.mask
+        causal, window, q_offset, scale = ctx.mask
         bwd = functools.partial(flash_attention_backward, causal=causal,
-                                window=window, q_offset=q_offset)
+                                window=window, q_offset=q_offset, scale=scale)
         if isinstance(q, DTensor):
             # per shard of batch and KV heads (a dry-run's trace)
             pl = list(q.placements)
@@ -336,14 +348,16 @@ class _FlashAttention(torch.autograd.Function):
                                            pl),
                             redistribute_inputs=True)
         dq, dk, dv = bwd(q, k, v, out, lse, dout)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, return_lse: bool = False):
+                    q_offset: int = 0, return_lse: bool = False,
+                    scale: Optional[float] = None):
     """Attention of ``q`` ``[B,S,K,G,hd]`` over ``k``, ``v`` ``[B,T,K,hd]``;
-    ``(out, lse)`` with ``return_lse``.
+    ``(out, lse)`` with ``return_lse``.  The logits are scaled by ``scale``,
+    ``1/sqrt(hd)`` when it is None.
 
     CUDA tensors go through the kernel on the current stream; CPU tensors
     through the plain version.  Where autograd records and an input
@@ -359,17 +373,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pl = list(q.placements)
         return local_map(
             functools.partial(flash_attention, causal=causal, window=window,
-                              q_offset=q_offset, return_lse=return_lse),
+                              q_offset=q_offset, return_lse=return_lse,
+                              scale=scale),
             out_placements=(pl, _lse_placements(pl)) if return_lse else pl,
             in_placements=(pl, pl, pl), redistribute_inputs=True)(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        out, lse = _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                         scale)
     elif q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, return_lse=return_lse)
+                                     q_offset=q_offset, return_lse=return_lse,
+                                     scale=scale)
     else:
-        out, lse = _launch(q, k, v, causal, window, q_offset, return_lse)
+        out, lse = _launch(q, k, v, causal, window, q_offset, return_lse,
+                           scale)
     return (out, lse) if return_lse else out
 
 

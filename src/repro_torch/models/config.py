@@ -124,3 +124,67 @@ class ArchConfig:
             attn = d * H * hd + 2 * d * K * hd + H * hd * d + 3 * d * self.d_ff
             n += L * ssm_l + attn   # shared attn block counted once
         return n
+
+
+@dataclass(frozen=True)
+class HybridMoEConfig(ArchConfig):
+    """The ``hybrid_moe`` family (granite-4.0-h, ``granitemoehybrid``): each
+    layer's mixer is Mamba2 or attention as ``layer_types`` names it, with
+    weights of its own, and every layer ends in a routed MoE of
+    ``num_experts`` experts of width ``d_ff`` (top ``top_k``) beside a
+    shared SwiGLU expert of width ``shared_ff``.  The muP multipliers scale
+    the embedding, both residual branches and (dividing) the logits;
+    ``attention_multiplier`` is the softmax scale (None: ``1/sqrt(hd)``).
+
+    ``experts_held`` of the router's ``num_experts`` are held here (0: all),
+    the experts ``expert_rank * experts_held`` on: one card's share of an
+    expert-parallel group.  A separate class, so that ``ArchConfig`` keeps
+    the JAX package's fields."""
+    layer_types: tuple = ()
+    attention_multiplier: Optional[float] = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    shared_ff: int = 0
+    experts_held: int = 0
+    expert_rank: int = 0
+
+    @property
+    def held(self) -> range:
+        """The router outputs whose experts are held here."""
+        n = self.experts_held or self.num_experts
+        return range(self.expert_rank * n, (self.expert_rank + 1) * n)
+
+    def reduced(self, **overrides) -> "HybridMoEConfig":
+        """A smoke-test-sized config with the published pattern's attention
+        layer among Mamba2 layers (``layer_types[3:7]``)."""
+        small = dict(
+            num_layers=4, layer_types=tuple(self.layer_types[3:7]),
+            d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=32,
+            shared_ff=48, vocab_size=256, num_experts=8, top_k=3,
+            experts_held=2, expert_rank=0, ssm_state=16, ssm_heads=4,
+            ssm_chunk=16, attention_multiplier=1.0 / 16,
+            param_dtype="float32", dtype="float32",
+        )
+        small.update(overrides)
+        return replace(self, **small)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Every parameter held here (the embedding is tied); with
+        ``active_only`` the held experts count by the share of them a token
+        uses on average, ``top_k * experts_held / num_experts``."""
+        d, V, E = self.d_model, self.vocab_size, self.num_experts
+        di, n = self.ssm_expand * d, self.ssm_state
+        h = self.ssm_heads or di // 64
+        hd, H, K = self.hd, self.num_heads, self.num_kv_heads
+        experts = 3 * d * self.d_ff * len(self.held)
+        if active_only:
+            experts = experts * self.top_k // E
+        ffn = d + d * E + experts + 3 * d * self.shared_ff     # ln2 .. shared
+        # norm, in_proj, conv (width 4) and bias, A_log, D, dt_bias, gated
+        # norm, out_proj
+        mamba = (d + d * (2 * di + 2 * n + h) + 5 * (di + 2 * n) + 3 * h
+                 + di + di * d)
+        attn = d + d * H * hd + 2 * d * K * hd + H * hd * d
+        kinds = {"mamba": mamba, "attention": attn}
+        return V * d + d + sum(kinds[t] + ffn for t in self.layer_types)

@@ -1,5 +1,6 @@
 """Core layers of the models: norms, RoPE, GQA attention (sliding window,
-QKV bias), MLPs, MoE, embedding and head.
+QKV bias, a given softmax scale), MLPs, MoE (capacity-limited, and a dropless
+expert-parallel share), embedding and head.
 
 The PyTorch counterpart of ``src/repro/models/layers.py``: the layers every
 family of the model zoo serves and trains with.  Parameters are :class:`Tree`
@@ -12,7 +13,9 @@ round.
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -23,7 +26,7 @@ from torch.distributed.tensor import full as dtensor_full
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.flash_attention import NEG_INF, flash_attention
+from ..kernels.flash_attention import NEG_INF, default_scale, flash_attention
 from ..sharding import cache_shardings
 
 # ---------------------------------------------------------------------------
@@ -324,11 +327,12 @@ FLASH_THRESHOLD = 4096 * 4096   # S*T above which blockwise attention is used
 
 
 def _sdpa(q, k, v, mask, *, use_kernel: bool = False, causal: bool = False,
-          window: Optional[int] = None):
+          window: Optional[int] = None, scale: Optional[float] = None):
     """Grouped scaled-dot-product attention.
 
     q: [B,S,K,G,hd] (G = query groups per kv head), k/v: [B,T,K,hd],
-    mask: [B,1,S,T] or broadcastable boolean (True = attend).
+    mask: [B,1,S,T] or broadcastable boolean (True = attend).  The logits
+    are scaled by ``scale``, ``1/sqrt(hd)`` when it is None.
 
     ``use_kernel`` and long causal prefills (S*T above ``FLASH_THRESHOLD``)
     take :func:`flash_attention`: kernel B3 on the card, its plain version on
@@ -343,20 +347,22 @@ def _sdpa(q, k, v, mask, *, use_kernel: bool = False, causal: bool = False,
         pl = batch_placements(q.device_mesh, q.shape[0], q.shape[2])
         q, k, v = (t.redistribute(t.device_mesh, pl) for t in (q, k, v))
     if S > 1 and (use_kernel or (causal and S * T > FLASH_THRESHOLD)):
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
     if isinstance(q, DTensor):
         # per shard of batch and KV heads (DTensor cannot split the
         # einsums' merged batch dims)
         mpl = ([Replicate() for _ in pl] if isinstance(mask, DTensor)
                else None)
-        return local_map(_dense_grads(_sdpa_einsum), out_placements=pl,
-                         in_placements=(pl, pl, pl, mpl),
+        return local_map(_dense_grads(functools.partial(_sdpa_einsum,
+                                                        scale=scale)),
+                         out_placements=pl, in_placements=(pl, pl, pl, mpl),
                          redistribute_inputs=True)(q, k, v, mask)
-    return _sdpa_einsum(q, k, v, mask)
+    return _sdpa_einsum(q, k, v, mask, scale)
 
 
-def _sdpa_einsum(q, k, v, mask):
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _sdpa_einsum(q, k, v, mask, scale: Optional[float] = None):
+    scale = default_scale(q.shape[-1], scale)
     logits = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
     logits = torch.where(mask[:, None, None] if mask.dim() == 3 else mask,
                          logits, NEG_INF)
@@ -377,8 +383,9 @@ def causal_mask(S: int, T: int, offset: int = 0,
 
 
 def attention(p, cfg, x, positions, mask, kv=None, *, use_kernel=False,
-              causal=False):
-    """kv: optional (k, v) override for cross-attention / cached decode."""
+              causal=False, scale: Optional[float] = None):
+    """kv: optional (k, v) override for cross-attention / cached decode;
+    ``scale``: the softmax scale, ``1/sqrt(hd)`` when None."""
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     if cfg.ablate_attention and kv is None:
@@ -399,7 +406,7 @@ def attention(p, cfg, x, positions, mask, kv=None, *, use_kernel=False,
         k, v = kv
     qg = q.reshape(B, S, K, G, hd)
     out = _sdpa(qg, k, v, mask, use_kernel=use_kernel, causal=causal,
-                window=cfg.sliding_window)
+                window=cfg.sliding_window, scale=scale)
     out = out.reshape(B, S, H * hd)
     return linear(p["wo"], out), (k, v)
 
@@ -541,6 +548,82 @@ def _experts(combine, xg, wg, wi, wo):
                      in_placements=(cpl, xpl, wpl, wpl, wpl),
                      in_grad_placements=(cpl, xgrad, wgrad, wgrad, wgrad),
                      redistribute_inputs=True)(combine, xg, wg, wi, wo)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts, dropless, over the experts held here (expert
+# parallelism: every share routes over all experts and computes its own)
+
+_moe_count_lock = threading.Lock()
+
+
+def moe_dropless(p, x, *, top_k: int, held: range, layer=0):
+    """Top-``top_k`` routed MoE with no token dropped, over the experts
+    ``held`` of the router's outputs, as one card of an expert-parallel
+    group computes its share (without the exchange).
+
+    ``p["router"]["w"]`` is ``[D, E]`` (every expert's logit, f32);
+    ``p["wg"]``, ``p["wi"]`` ``[n, D, F]`` and ``p["wo"]`` ``[n, F, D]`` hold
+    the ``n = len(held)`` experts held here.  Each token takes the ``top_k``
+    largest logits (``torch.topk``) and the softmax over those alone as its
+    gates; an assignment to a held expert adds ``gate * wo(silu(wg x) * wi
+    x)``, and an assignment to an expert held elsewhere adds nothing here.
+    A stable sort on the expert puts the held experts' rows first, in
+    expert order; each of the three products is one grouped product
+    (``torch._grouped_mm``, rows of ``D`` and ``F`` a multiple of 16 bytes)
+    over those rows, the groups' ends kept on the card; the gated rows are
+    summed back per token in f32.  The row counts come to the host once a
+    call (range ``moe.row_counts``) and size the rows: without them every
+    tensor would be sized for ``N * min(top_k, n)`` rows, the most a call
+    can route here, seven times the rows that 9 of 72 experts at top-10
+    take at even routing.
+
+    Counters, summed over calls (a training step under ``cfg.remat`` calls
+    each layer twice: forward and recompute): ``moe_dropless.assigned``
+    ``{(layer, expert): assignments computed}``, ``moe_dropless.absent``
+    (assignments to experts not held here, left out) and
+    ``moe_dropless.dropped`` (assignments to held experts not computed:
+    0).  Returns the ``[B, S, D]`` output in ``x``'s dtype."""
+    B, S, D = x.shape
+    n = len(held)
+    tokens = x.reshape(-1, D)
+    N = tokens.shape[0]
+    logits = tokens.float() @ p["router"]["w"].float()          # [N,E]
+    top, idx = torch.topk(logits, top_k, dim=-1)                # [N,K]
+    gates = torch.softmax(top, dim=-1)
+    local = idx - held.start
+    expert = torch.where((local >= 0) & (local < n), local, n).reshape(-1)
+    order = torch.argsort(expert, stable=True)
+    counts = torch.bincount(expert, minlength=n + 1)            # [n+1]
+    with torch.profiler.record_function("moe.row_counts"):
+        host = counts.tolist()
+    M = sum(host[:n])
+    pick = order[:M]
+    row = pick // top_k                                         # [M]
+    gate = gates.reshape(-1)[pick]
+    xs = tokens[row]                                            # [M,D]
+    if M:
+        ends = torch.cumsum(counts[:n], 0).to(torch.int32)
+        wg, wi, wo = (p[k].to(x.dtype) for k in ("wg", "wi", "wo"))
+        h = F.silu(torch._grouped_mm(xs, wg, offs=ends)) * \
+            torch._grouped_mm(xs, wi, offs=ends)
+        y = torch._grouped_mm(h, wo, offs=ends)                 # [M,D]
+    else:
+        y = xs
+    out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, row, y.float() * gate[:, None])
+    with _moe_count_lock:
+        for e, c in zip(held, host):
+            key = (layer, e)
+            moe_dropless.assigned[key] = moe_dropless.assigned.get(key, 0) + c
+        moe_dropless.absent += host[n]
+        moe_dropless.dropped += M - y.shape[0]
+    return out.to(x.dtype).reshape(B, S, D)
+
+
+moe_dropless.assigned = {}
+moe_dropless.absent = 0
+moe_dropless.dropped = 0
 
 
 def new_cache(init_cache, B: int, max_len: int, like: torch.Tensor) -> dict:

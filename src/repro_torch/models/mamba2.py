@@ -49,7 +49,7 @@ class Mamba2LM(L.TreeLM):
     parameter tree."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("ssm", "hybrid"):
+        if cfg.family not in ("ssm", "hybrid", "hybrid_moe"):
             raise ValueError(f"Mamba2LM serves the ssm family, not {cfg.family}")
         super().__init__(cfg)
         self.d_inner = cfg.ssm_expand * cfg.d_model
@@ -197,15 +197,26 @@ class Mamba2LM(L.TreeLM):
         y = y + xh * D.to(dtype)[:, None]
         return y.reshape(Bsz, S, di), hlast
 
+    def _gated_out(self, lp, y, z):
+        """The gated norm (over all channels: one group) and out_proj."""
+        y = L.rms_norm(lp["norm"], y * F.silu(z), self.cfg.norm_eps)
+        return L.linear(lp["out_proj"], y)
+
     def _mix_out(self, lp, x, y, z):
         """The gated norm and out_proj, plus the residual."""
-        y = L.rms_norm(lp["norm"], y * F.silu(z), self.cfg.norm_eps)
-        return x + L.linear(lp["out_proj"], y)
+        return x + self._gated_out(lp, y, z)
 
     def layer(self, lp, x):
         """One layer over a whole sequence ``x [B,S,D]``: returns the output,
         the conv input's last ``CONV_WIDTH - 1`` steps and the SSD's final
         state (f32), which prime the decode cache."""
+        out, conv_tail, hlast = self.mixer(lp, x)
+        return x + out, conv_tail, hlast
+
+    def mixer(self, lp, x):
+        """:meth:`layer` without the residual: the mixer's output
+        ``out_proj(norm(y * silu(z)))`` of ``rms_norm(lp["ln"], x)``, the
+        conv tail and the final state."""
         cfg = self.cfg
         hin = L.rms_norm(lp["ln"], x, cfg.norm_eps)
         z, xs, bc, dt = self._mix_in(lp, hin)
@@ -221,7 +232,7 @@ class Mamba2LM(L.TreeLM):
                 ("heads", "state"), hw, (wbc, bbc))
         else:
             y, hlast = self._scan(xs, bc, dt, *hw, wbc, bbc)
-        return self._mix_out(lp, x, y, z), conv_tail, hlast
+        return self._gated_out(lp, y, z), conv_tail, hlast
 
     def _step(self, cx, cbc, xs, bc, dt, ssm_st, wx, bx, dt_bias, A_log, D,
               wbc, bbc):

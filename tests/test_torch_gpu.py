@@ -1206,3 +1206,152 @@ def test_dryrun_traces_kernels_without_launching(cuda, arch, kind):
             make_prefill_step(model, cfg, 128)(batch)
     assert flash_attention.launches + ssd_scan.launches > n0
     assert one["flops"] == fc.get_total_flops()
+
+
+# -- granite-4.0-h (hybrid_moe): B3's scale, the dropless MoE, the model -----
+def _granite_reference():
+    """``portbench/reference/granite_hybrid.py`` (plain torch, no JAX)."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.reference import granite_hybrid
+    return granite_hybrid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [1 / 128, 0.3])
+def test_flash_kernel_scale_matches_plain(cuda, dtype, scale):
+    """B3 with granite's softmax scale (hd 128, G 4) within FLASH_TOL of
+    the plain version at the same scale, lse within 1e-4."""
+    q = _randn(2, 300, 2, 4, 128, seed=60).to(cuda, dtype)
+    k = _randn(2, 300, 2, 128, seed=61).to(cuda, dtype)
+    v = _randn(2, 300, 2, 128, seed=62).to(cuda, dtype)
+    out, lse = flash_attention(q, k, v, causal=True, scale=scale,
+                               return_lse=True)
+    exp, exp_lse = flash_attention_plain(q, k, v, causal=True, scale=scale,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), exp.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, exp_lse, atol=1e-4, rtol=1e-4)
+
+
+def test_dropless_moe_on_card_matches_cpu(cuda):
+    """The same routing, counts and output (f32, 1e-5) on the card."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(63)
+    p = {"router": {"w": torch.randn(64, 72, generator=g)},
+         "wg": torch.randn(9, 64, 48, generator=g) / 8,
+         "wi": torch.randn(9, 64, 48, generator=g) / 8,
+         "wo": torch.randn(9, 48, 64, generator=g) / 8}
+    x = torch.randn(2, 256, 64, generator=g)
+    outs, counts = [], []
+    for dev in ("cpu", cuda):
+        q = {"router": {"w": p["router"]["w"].to(dev)},
+             **{k: p[k].to(dev) for k in ("wg", "wi", "wo")}}
+        before = dict(L.moe_dropless.assigned)
+        outs.append(L.moe_dropless(q, x.to(dev), top_k=10, held=range(9, 18),
+                                   layer=("card", str(dev))).cpu())
+        counts.append([L.moe_dropless.assigned[(("card", str(dev)), e)]
+                       - before.get((("card", str(dev)), e), 0)
+                       for e in range(9, 18)])
+    assert counts[0] == counts[1]
+    torch.testing.assert_close(outs[1], outs[0], atol=1e-5, rtol=1e-5)
+
+
+def test_dropless_moe_bf16_grouped_products_on_card(cuda):
+    """bf16 rows through the card's grouped products, in groups of uneven
+    sizes, against the same layer in f32 on the card: output and every
+    gradient within 2% of its norm (bf16's rounding of the rows, weights
+    and hidden units).  The routing is the same: both take the logits in
+    f32 from the same values."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(65)
+    p = {"router": {"w": torch.randn(256, 72, generator=g)},
+         "wg": torch.randn(9, 256, 128, generator=g) / 16,
+         "wi": torch.randn(9, 256, 128, generator=g) / 16,
+         "wo": torch.randn(9, 128, 256, generator=g) / 16}
+    x = torch.randn(2, 300, 256, generator=g).to(torch.bfloat16)
+    dy = torch.randn(2, 300, 256, generator=g)
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = {"router": {"w": p["router"]["w"].to(cuda)},
+             **{k: p[k].to(cuda) for k in ("wg", "wi", "wo")}}
+        xd = x.to(cuda, dtype).requires_grad_(True)
+        leaves = [q["router"]["w"], q["wg"], q["wi"], q["wo"], xd]
+        for t in leaves:
+            t.requires_grad_(True)
+        out = L.moe_dropless(q, xd, top_k=10, held=range(9, 18))
+        grads = torch.autograd.grad((out.float() * dy.to(cuda)).sum(), leaves)
+        got[dtype] = [out, *grads]
+    for a, b in zip(got[torch.bfloat16], got[torch.float32]):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b).norm() <= 0.02 * b.norm()
+
+
+def _granite_tiny(**kw):
+    return get_config("granite-4.0-h-small").reduced(**kw)
+
+
+def test_granite_on_card_matches_reference(cuda):
+    """Reduced granite in f32 with B3's and B4's f32 kernels: loss within
+    1e-5 relative and each gradient within 1e-3 of its norm of the plain
+    reference on the card (the kernels sum in other orders, 2e-4 on B4's
+    outputs)."""
+    ref = _granite_reference()
+    cfg = _granite_tiny(embedding_multiplier=12.0, residual_multiplier=0.22,
+                        logits_scaling=16.0)
+    model = build_model(cfg).init(torch.Generator(device=cuda).manual_seed(64))
+    w = {k: p.detach().clone() for k, p in model.named_parameters()}
+    spec = ref.Spec(
+        hidden_size=cfg.d_model, num_attention_heads=cfg.num_heads,
+        num_key_value_heads=cfg.num_kv_heads, intermediate_size=cfg.d_ff,
+        shared_intermediate_size=cfg.shared_ff, vocab_size=cfg.vocab_size,
+        layer_types=cfg.layer_types, router_experts=cfg.num_experts,
+        experts_held=len(cfg.held), expert_rank=cfg.expert_rank,
+        num_experts_per_tok=cfg.top_k, mamba_n_heads=cfg.ssm_heads,
+        mamba_d_head=cfg.ssm_expand * cfg.d_model // cfg.ssm_heads,
+        mamba_d_state=cfg.ssm_state, mamba_chunk_size=32,
+        attention_multiplier=cfg.attention_multiplier,
+        embedding_multiplier=cfg.embedding_multiplier,
+        residual_multiplier=cfg.residual_multiplier,
+        logits_scaling=cfg.logits_scaling, rms_norm_eps=cfg.norm_eps)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(65))
+    n0 = (flash_attention.launches, ssd_scan.launches)
+    model.requires_grad_(True)
+    loss = model.loss({"tokens": ids, "labels": ids})
+    loss.backward()
+    # remat: each kernel runs in the forward and again in the recompute
+    assert (flash_attention.launches - n0[0], ssd_scan.launches - n0[1]) \
+        == (2, 6)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref_loss, ref_grads = ref.loss_and_grads(spec, w, ids, list(w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert abs(loss.item() - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, p in model.named_parameters():
+        want = ref_grads[name]
+        assert (p.grad - want).norm() <= 1e-3 * want.norm(), name
+
+
+def test_granite_train_loop_on_card_matches_cpu(cuda):
+    """Reduced granite (f32, B3 and B4 on): three TrainLoop steps on the
+    card give the CPU's losses within 1e-4 relative; in bf16 the card's
+    steps run and stay finite."""
+    cfg = _granite_tiny()
+    base = build_model(cfg).init(torch.Generator().manual_seed(66))
+    losses = []
+    for dev in ("cpu", cuda):
+        loop = TrainLoop(cfg, global_batch=2, seq_len=128, device=dev,
+                         init=lambda dev=dev: copy.deepcopy(base).to(dev))
+        losses.append(loop.run(3)[2].losses)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    loop = TrainLoop(bf, global_batch=2, seq_len=128, device=cuda,
+                     init=lambda: copy.deepcopy(base).to(cuda))
+    got = loop.run(2)[2].losses
+    assert all(math.isfinite(v) for v in got)
+    np.testing.assert_allclose(got, losses[0][:2], rtol=1e-2)
