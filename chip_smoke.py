@@ -120,10 +120,11 @@ Phases, each printing one JSON line:
                 check).
 6f. ssm-train - mamba2-370m at full width through ``TrainLoop``: B4 under
                 autograd in every layer (the kernel's forward, again in the
-                recompute, the plain backward), the first step against the
-                plain scan on the card (loss within 1e-3, grad norm within
-                1e-2 relative), a warm-up step, then 4 steps of 2 x 2048
-                tokens.
+                recompute, the plain backward with its recurrence over
+                chunks as two state-pass launches), the first step against
+                the plain scan on the card (loss within 1e-3, grad norm
+                within 1e-2 relative), a warm-up step, then 4 steps of 2 x
+                2048 tokens, with ssd_state_pass.launches 2 a layer a step.
 6g. audio     - whisper-tiny at full width (1500 frames) in f32: encode, the
                 audio prefill step, 32 decode steps from an empty cache
                 against the teacher-forced decoder on the same tokens
@@ -164,7 +165,15 @@ Phases, each printing one JSON line:
                 achieved TFLOP/s; B3 at the train shape with and without
                 lse, beside the plain backward; B3 at granite-moe-3b's
                 serving heads beside the library call and its plain
-                backward; B4 at the ssm-train shape and its plain backward.
+                backward; B4 at the ssm-train shape and its plain backward;
+                B4's forward and backward (the recurrence over chunks as its
+                two state-pass launches, then as ssd_state_pass_plain), and
+                the recurrence alone (ssd_state_pass: hprev, hlast and the
+                states' gradient bit for bit, the decays' within 1e-6 of
+                its largest, against ssd_state_pass_plain, both timed,
+                beside the launches' byte bound), at the ssm-train shape
+                and at one Mamba2 layer of the granite training cell
+                (b 2, s 8192, h 128).
 10. budget    - both memory-budget demos on the card at 50% of their
                 unbudgeted device high-water mark: three phased N-body
                 simulations of 2^17 float32 bodies (1 x 1, 8 steps each,
@@ -308,6 +317,8 @@ SERVE_PROMPT_LENS, SERVE_MAX_NEW, SERVE_MAX_LEN = (1024, 2048), 32, 2080
 SSM_ARCH = "mamba2-370m"
 # B4 at one layer of a full mamba2-370m prefill batch: b, s, h, p, n, chunk
 SSD_MAIN = (SERVE_MAX_BATCH, SERVE_PROMPT_LENS[1], 32, 64, 128, 64)
+# B4 at one Mamba2 layer of the granite training cell: b, s, h, p, n, chunk
+SSD_GRANITE = (2, 8192, 128, 64, 128, 64)
 
 # kernel-versus-plain tolerances: |kernel - plain| <= atol + rtol * scale
 # B1: scale = sum_j |term_ij| (nbody_error_scale).  The kernel sums N f32
@@ -996,9 +1007,10 @@ def phase_reference() -> None:
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import (flash_attention, nbody_forces_rows,
-                                     ssd_scan, wave_step_rows)
+                                     ssd_scan, ssd_state_pass, wave_step_rows)
     nbody_forces_rows.launches = wave_step_rows.launches = 0
     flash_attention.launches = ssd_scan.launches = 0
+    ssd_state_pass.launches = 0
 
 
 def timed_run(sim, steps: int, measure_every: int = 0,
@@ -2028,11 +2040,13 @@ def moe_routes(model, cfg, ids, tol: float) -> dict:
         picks[route].append(probs.topk(c.top_k, dim=-1).indices.sort(-1)[0])
         return real_moe(p, c, x, group_size=group_size)
 
-    def sdpa(q, k, v, mask, *, use_kernel=False, causal=False, window=None):
+    def sdpa(q, k, v, mask, *, use_kernel=False, causal=False, window=None,
+             scale=None):
         out = real_sdpa(q, k, v, mask, use_kernel=use_kernel, causal=causal,
-                        window=window)
+                        window=window, scale=scale)
         if f32 and use_kernel and q.shape[1] > 1:
-            ref = real_sdpa(q, k, v, mask, causal=causal, window=window)
+            ref = real_sdpa(q, k, v, mask, causal=causal, window=window,
+                            scale=scale)
             attention.append(errors(out, ref, "flash_attention.float32"))
         return out
 
@@ -2386,8 +2400,18 @@ def phase_timing(dev) -> list[dict]:
     out.append(flash)
     ssd = ssd_timing(dev, g)
     ssd["train"] = ssd_train_timing(dev, g)
+    _, s, h, p, n, chunk = SSD_MAIN
+    ssd["train"]["backward"] = ssd_backward_timing(
+        dev, g, TRAIN_BATCH, s, h, p, n, chunk)
+    ssd["granite_train"] = ssd_backward_timing(dev, g, *SSD_GRANITE)
     ssd["ok"] = ssd["ok"] and ssd["train"]["ok"]
     out.append(ssd)
+    state_pass = state_pass_timing(dev, TRAIN_BATCH, -(-s // chunk), h, p, n)
+    gb, gs, gh, gp, gn, gchunk = SSD_GRANITE
+    state_pass["granite_train"] = state_pass_timing(dev, gb, -(-gs // gchunk),
+                                                    gh, gp, gn)
+    state_pass["ok"] = state_pass["ok"] and state_pass["granite_train"]["ok"]
+    out.append(state_pass)
     ok = all(t["ok"] for t in out)
     emit({"phase": "timing", "ok": ok, "kernels": out})
     if not ok:
@@ -2536,6 +2560,87 @@ def ssd_train_timing(dev, g: torch.Generator) -> dict:
             "ms": ms, "op_ms": op_ms, "op_dispatch_ms": op_ms - ms, **enqueue,
             "plain_ms": plain_ms, "backward_plain_ms": backward_ms,
             **e}
+
+
+def ssd_backward_timing(dev, g: torch.Generator, b, s, h, p, n,
+                        chunk) -> dict:
+    """B4 at one Mamba2 layer of a training step, bf16: its forward and
+    backward (the Function's: the kernel forward, the plain backward
+    recomputed), with the recurrence over chunks of that backward the two
+    state-pass launches and, beside it, ``ssd_state_pass_plain``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_state_pass_plain
+    ssd_module = sys.modules["repro_torch.kernels.ssd_scan"]
+    ins = [t.requires_grad_() for t in
+           ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, g)]
+    dy = torch.randn(b, s, h, p, generator=g).to(dev, torch.bfloat16)
+
+    def forward_backward():
+        y, _ = ssd_scan(*ins, chunk)
+        torch.autograd.grad(y, ins, dy)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(forward_backward, reps=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    kernels = ssd_module.ssd_state_pass
+    ssd_module.ssd_state_pass = ssd_state_pass_plain
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        plain_pass_ms = cuda_ms(forward_backward, reps=3)
+        plain_pass_peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        ssd_module.ssd_state_pass = kernels
+    return {"shape": [b, s, h, p, n, chunk], "dtype": "bfloat16",
+            "forward_backward_ms": ms, "peak_bytes": peak,
+            "forward_backward_plain_pass_ms": plain_pass_ms,
+            "plain_pass_peak_bytes": plain_pass_peak}
+
+
+def state_pass_timing(dev, b, c, h, p, n) -> dict:
+    """B4's recurrence over chunks, ``ssd_state_pass``, on card tensors of
+    ``[b, c, h, p, n]`` states, forward and backward as a training step runs
+    it (the final state brings no gradient), against
+    ``ssd_state_pass_plain`` on the same inputs: ``hprev``, ``hlast`` and
+    the states' gradient bit for bit, the decays' within 1e-6 of its
+    largest and the same in a second run.  Both timed; the bound is bytes:
+    the forward reads the states and writes ``hprev`` and ``hlast``, the
+    reverse reads ``hprev`` and ``dhprev`` and writes the states'
+    gradient."""
+    from repro_torch.kernels.ssd_scan import (ssd_state_pass,
+                                              ssd_state_pass_plain)
+    gd = torch.Generator(device=dev).manual_seed(SEED)
+    states = torch.randn(b, c, h, p, n, device=dev,
+                         generator=gd).requires_grad_()
+    # decays in (0.5, 1]: the state neither dies nor grows far over c chunks
+    decay = (1 - 0.5 * torch.rand(b, c, h, device=dev, generator=gd)
+             ).requires_grad_()
+    dhprev = torch.randn(b, c, h, p, n, device=dev, generator=gd)
+
+    def run(fn):
+        hprev, hlast = fn(states, decay)
+        return (hprev.detach(), hlast.detach(),
+                *torch.autograd.grad(hprev, (states, decay), dhprev))
+
+    got, again = run(ssd_state_pass), run(ssd_state_pass)
+    want = run(ssd_state_pass_plain)
+    exact = {k: torch.equal(a, e) for k, a, e in
+             zip(("hprev", "hlast", "dstates"), got, want)}
+    ddecay_err = float((got[3] - want[3]).abs().max())
+    ddecay_max = float(want[3].abs().max())
+    deterministic = torch.equal(got[3], again[3])
+    ok = (all(exact.values()) and deterministic
+          and ddecay_err <= 1e-6 * ddecay_max)
+    del got, again, want
+    ms = cuda_ms(lambda: run(ssd_state_pass), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: run(ssd_state_pass_plain), reps=3)
+    big, small = states.numel() * 4, decay.numel() * 4
+    nbytes = (2 * big + small + big // c) + (3 * big + 2 * small)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"name": "ssd_state_pass", "ok": ok, "shape": [b, c, h, p, n],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+            "bytes": nbytes, "bitwise": exact,
+            "max_abs_err": ddecay_err, "ddecay_max_abs": ddecay_max,
+            "ddecay_deterministic": deterministic}
 
 
 def device_activity(run, window: str | None = None, markers: int = 0) -> dict:
@@ -2867,7 +2972,7 @@ def busy_report(run: dict) -> dict:
 def phase_trace(dev) -> dict:
     """A10 on the card: the records of traced N-body and WaveSim runs."""
     from repro_torch.kernels.nbody import nbody_forces_rows
-    from repro_torch.kernels.stencil5 import wave_step_rows
+    from repro_torch.kernels.stencil5 import wave_step_rows, writing_into
     out, ok = {}, True
     for app, kernel in (("nbody", "timestep"), ("wavesim", "wave")):
         # 2 x 2, traced and profiled: invariants, busy time against the
@@ -2900,10 +3005,13 @@ def phase_trace(dev) -> dict:
             un = torch.empty_like(b)
             kernel_ms = cuda_ms(lambda: wave_step_rows(a, b, 0, WAVE_H,
                                                        WAVE_C), reps=20)
-            # the step instruction's work: B2, then the write of its result
-            # into the new field (``un_v.set``)
-            body_ms = cuda_ms(lambda: un.copy_(wave_step_rows(
-                a, b, 0, WAVE_H, WAVE_C)), reps=20)
+            # the step instruction's work: B2 writing straight into the new
+            # field, as ``apps/wavesim.py`` runs it (``writing_into``)
+            def step():
+                with writing_into(un):
+                    return wave_step_rows(a, b, 0, WAVE_H, WAVE_C)
+
+            body_ms = cuda_ms(step, reps=20)
         rec_ms = median(recs) * 1e3
         duration = {"record_median_ms": rec_ms, "records": len(recs),
                     "kernel_alone_cuda_event_ms": kernel_ms,
@@ -3065,6 +3173,7 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
     as in the JAX package), once more in the backward's recompute; with
     ``held_out``, more steps up to TRAIN_FALL_STEPS
     and the loss of a batch never trained on must fall."""
+    from repro_torch.kernels import ssd_scan, ssd_state_pass
     from repro_torch.models import build_model
     from repro_torch.runtime import TrainLoop
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3105,6 +3214,7 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel.launches
+    state_pass_launches = ssd_state_pass.launches
     peak = torch.cuda.max_memory_allocated(dev)
     losses = warm.losses + m.losses
     res = {"arch": cfg.name, "full": True, "family": cfg.family,
@@ -3120,8 +3230,15 @@ def train_main_path(dev, cfg, kernel, set_route, held_out: bool) -> dict:
            "remat": cfg.remat, "launches": launches,
            "launches_expected": (cfg.num_layers * TRAIN_STEPS
                                  * (2 if cfg.remat else 1)),
+           # B4's backward: one forward and one reverse launch of its
+           # recurrence over chunks in each layer a step, remat or not
+           "state_pass_launches": state_pass_launches,
+           "state_pass_launches_expected": (
+               2 * cfg.num_layers * TRAIN_STEPS if kernel is ssd_scan
+               else 0),
            "max_memory_allocated": peak}
     ok = (route_check["ok"] and launches == res["launches_expected"]
+          and state_pass_launches == res["state_pass_launches_expected"]
           and all(math.isfinite(x) for x in losses))
     if held_out:
         # the first Adam steps from random weights raise the loss of batches
@@ -3710,7 +3827,8 @@ def main() -> int:
                 + dryrun["launches"]["flash_attention"],
                 "ssd_scan": ssm["launches"] + ssm_train["launches"]
                 + remat["launches"]["ssd_scan"]
-                + dryrun["launches"]["ssd_scan"]}
+                + dryrun["launches"]["ssd_scan"],
+                "ssd_state_pass": ssm_train["state_pass_launches"]}
     sources = {"nbody_forces_rows": ("src/repro_torch/kernels/csrc/nbody.cu",
                                      "src/repro/kernels/nbody.py:23"),
                "wave_step_rows": ("src/repro_torch/kernels/csrc/stencil5.cu",
@@ -3719,7 +3837,10 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:28"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:27")}
+                            "src/repro/kernels/ssd_scan.py:27"),
+               "ssd_state_pass": (
+                   "src/repro_torch/kernels/csrc/ssd_state_pass.cu",
+                   "src/repro/models/mamba2.py:75")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timing[name]

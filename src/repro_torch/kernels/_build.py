@@ -25,7 +25,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nbody.cu", "stencil5.cu", "flash_attention.cu", "ssd_scan.cu",
-           "card_gate.cu", "errors.cu")
+           "ssd_state_pass.cu", "card_gate.cu", "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CFLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +44,8 @@ _SIGNATURES = {
                              _I, _I, _I, _P],
     "repro_ssd_scan_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_ssd_scan_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_ssd_state_pass_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ssd_state_pass_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_card_gate": [_P, _I, _U64, _P],
 }
 

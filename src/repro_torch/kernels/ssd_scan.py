@@ -17,7 +17,11 @@ On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel in
 ``csrc/ssd_scan.cu``; on a CPU tensor it runs the plain PyTorch version,
 :func:`ssd_scan_plain`, the twin of ``repro.models.mamba2.ssd_chunked``.
 Under autograd the forward is the same, and the backward is autograd of the
-plain version recomputed from the inputs (:class:`_SSDScan`).
+plain version recomputed from the inputs (:class:`_SSDScan`), but for its
+recurrence over chunks, :func:`ssd_state_pass`: on the card one hand-written
+launch forward and one backward (``csrc/ssd_state_pass.cu``), elsewhere
+:func:`ssd_state_pass_plain`, which :func:`ssd_scan_plain` runs on every
+device.
 :func:`ssd_chunk_ref` is the twin of ``repro.kernels.ref.ssd_chunk_ref``.
 
 A launch on plain CUDA tensors calls the kernel directly; on fake tensors,
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import functools
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -81,7 +86,15 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, chunk: int):
     """Plain PyTorch version, the twin of ``ssd_chunked``: products and the
     carried state in f32; ``h_prev`` rounded to ``x``'s dtype before the
-    ``C h_prev`` term, as ``ssd_chunked`` rounds it."""
+    ``C h_prev`` term, as ``ssd_chunked`` rounds it.  Its recurrence over
+    chunks is :func:`ssd_state_pass_plain` on every device."""
+    return _ssd_scan_body(x, a, B, C, chunk, ssd_state_pass_plain)
+
+
+def _ssd_scan_body(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, chunk: int, state_pass):
+    """:func:`ssd_scan_plain` with ``state_pass(states, chunk_decay) ->
+    (hprev, hlast)`` as its recurrence over chunks."""
     _check_args(x, a, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -110,18 +123,32 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
     # 3. inter-chunk recurrence over c, in f32
     chunk_decay = torch.exp(a_cum[..., -1])                       # [b,c,h]
-    hcur = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    hprevs = []
-    for ci in range(c):
-        hprevs.append(hcur)
-        hcur = chunk_decay[:, ci, :, None, None] * hcur + states[:, ci]
-    hprev = torch.stack(hprevs, dim=1).to(x.dtype).float()       # [b,c,h,p,n]
+    hprev, hlast = state_pass(states, chunk_decay)
+    hprev = hprev.to(x.dtype).float()                             # [b,c,h,p,n]
 
     # 4. inter-chunk output: C_t (decay from chunk start) h_prev
     y_inter = torch.einsum("bcqn,bchq,bchpn->bcqhp", Cc, torch.exp(a_cum),
                            hprev)
     y = (y_intra + y_inter).to(x.dtype).reshape(b, c * chunk, h, p)
-    return y[:, :s], hcur
+    return y[:, :s], hlast
+
+
+def ssd_state_pass_plain(states: torch.Tensor, chunk_decay: torch.Tensor):
+    """Step 3 of :func:`ssd_scan_plain`, the recurrence over chunks in f32:
+    ``states [b,c,h,p,n]`` and ``chunk_decay [b,c,h]`` give ``hprev
+    [b,c,h,p,n]`` (the state before each chunk, 0 before the first) and
+    ``hlast [b,h,p,n]``, with ``h_{ci+1} = chunk_decay_ci * h_ci +
+    states_ci``.  Both inputs are unbound once, so the backward adds each
+    chunk's gradient into its own slice and not into a zero tensor of all
+    the states."""
+    b, _, h, p, n = states.shape
+    hcur = torch.zeros((b, h, p, n), dtype=torch.float32,
+                       device=states.device)
+    hprevs = []
+    for st, dec in zip(states.unbind(1), chunk_decay.unbind(1)):
+        hprevs.append(hcur)
+        hcur = dec[:, :, None, None] * hcur + st
+    return torch.stack(hprevs, dim=1), hcur
 
 
 def ssd_chunk_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
@@ -239,11 +266,179 @@ def _ssd_sharding(x, a, B, C, chunk):
             ([Shard(2), Shard(1)], [Shard(2), Shard(2), R, R, None])]
 
 
+def _check_state_pass(states: torch.Tensor, chunk_decay: torch.Tensor) -> None:
+    if states.dim() != 5 or tuple(chunk_decay.shape) != tuple(states.shape[:3]):
+        raise ValueError(f"want states [b,c,h,p,n] and chunk_decay [b,c,h]; "
+                         f"got {tuple(states.shape)}, "
+                         f"{tuple(chunk_decay.shape)}")
+    if states.dtype != torch.float32 or chunk_decay.dtype != torch.float32:
+        raise TypeError(f"the recurrence takes float32, got {states.dtype}, "
+                        f"{chunk_decay.dtype}")
+    if chunk_decay.device != states.device:
+        raise ValueError("states and chunk_decay must be on one device")
+    if states.numel() == 0:
+        raise ValueError(f"empty states {tuple(states.shape)}")
+    b, _, h, p, n = states.shape
+    if h > 65535 or b > 65535 or p * n >= 2**31:
+        raise ValueError(f"b = {b}, h = {h} or p * n = {p * n} exceeds the "
+                         f"kernels' grid")
+
+
+def _count_state_pass() -> None:
+    with _count_lock:
+        ssd_state_pass.launches += 1
+
+
+def _state_pass_fwd_kernel(states: torch.Tensor, chunk_decay: torch.Tensor):
+    """The forward launch: ``(hprev, hlast)``.  Adds one to
+    ``ssd_state_pass.launches``."""
+    b, c, h, p, n = states.shape
+    hprev = torch.empty(states.shape, dtype=torch.float32,
+                        device=states.device)
+    hlast = torch.empty((b, h, p, n), dtype=torch.float32,
+                        device=states.device)
+    with torch.cuda.device(states.device):
+        stream = torch.cuda.current_stream(states.device).cuda_stream
+        err = _build.library().repro_ssd_state_pass_fwd(
+            states.data_ptr(), chunk_decay.data_ptr(), hprev.data_ptr(),
+            hlast.data_ptr(), b, c, h, p * n, stream)
+    _build.check(err, "ssd_state_pass forward launch")
+    _count_state_pass()
+    return hprev, hlast
+
+
+def _state_pass_bwd_kernel(chunk_decay: torch.Tensor, hprev: torch.Tensor,
+                           dhprev: Optional[torch.Tensor],
+                           dhlast: Optional[torch.Tensor]):
+    """The reverse launch: ``(dstates, ddecay)``; a missing ``dhprev`` or
+    ``dhlast`` reads as zeros.  Adds one to ``ssd_state_pass.launches``."""
+    b, c, h, p, n = hprev.shape
+    dstates = torch.empty(hprev.shape, dtype=torch.float32,
+                          device=hprev.device)
+    ddecay = torch.empty(chunk_decay.shape, dtype=torch.float32,
+                         device=hprev.device)
+    ptr = [None if t is None else t.data_ptr() for t in (dhprev, dhlast)]
+    with torch.cuda.device(hprev.device):
+        stream = torch.cuda.current_stream(hprev.device).cuda_stream
+        err = _build.library().repro_ssd_state_pass_bwd(
+            chunk_decay.data_ptr(), hprev.data_ptr(), *ptr,
+            dstates.data_ptr(), ddecay.data_ptr(), b, c, h, p * n, stream)
+    _build.check(err, "ssd_state_pass backward launch")
+    _count_state_pass()
+    return dstates, ddecay
+
+
+@torch.library.custom_op("repro_torch::ssd_state_pass_fwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_state_pass_fwd(states: torch.Tensor, chunk_decay: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _state_pass_fwd_kernel(states, chunk_decay)
+
+
+@_ssd_state_pass_fwd.register_fake
+def _(states, chunk_decay):
+    b, _, h, p, n = states.shape
+    return torch.empty_like(states), states.new_empty((b, h, p, n))
+
+
+@torch.library.custom_op("repro_torch::ssd_state_pass_bwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_state_pass_bwd(chunk_decay: torch.Tensor, hprev: torch.Tensor,
+                        dhprev: Optional[torch.Tensor],
+                        dhlast: Optional[torch.Tensor]
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _state_pass_bwd_kernel(chunk_decay, hprev, dhprev, dhlast)
+
+
+@_ssd_state_pass_bwd.register_fake
+def _(chunk_decay, hprev, dhprev, dhlast):
+    return torch.empty_like(hprev), torch.empty_like(chunk_decay)
+
+
+@register_sharding(torch.ops.repro_torch.ssd_state_pass_fwd.default)
+def _state_pass_fwd_sharding(states, chunk_decay):
+    """Per mesh dim: replicated, batch-sharded, or head-sharded (``hlast``'s
+    heads are its dim 1)."""
+    R = Replicate()
+    return [([R, R], [R, R]),
+            ([Shard(0), Shard(0)], [Shard(0), Shard(0)]),
+            ([Shard(2), Shard(1)], [Shard(2), Shard(2)])]
+
+
+@register_sharding(torch.ops.repro_torch.ssd_state_pass_bwd.default)
+def _state_pass_bwd_sharding(chunk_decay, hprev, dhprev, dhlast):
+    """The forward's rule, read backwards; a missing gradient has no
+    placement."""
+    R = Replicate()
+
+    def of(p, last):
+        return [p, p, None if dhprev is None else p,
+                None if dhlast is None else last]
+    return [([R, R], of(R, R)),
+            ([Shard(0), Shard(0)], of(Shard(0), Shard(0))),
+            ([Shard(2), Shard(2)], of(Shard(2), Shard(1)))]
+
+
+class _StatePass(torch.autograd.Function):
+    """The recurrence on the card: one forward launch, one reverse launch.
+    ``hprev`` is saved for the reverse (the plain loop's autograd saves the
+    same states, one chunk at a time)."""
+
+    @staticmethod
+    def forward(ctx, states, chunk_decay):
+        if _build.direct(states, chunk_decay):
+            hprev, hlast = _state_pass_fwd_kernel(states, chunk_decay)
+        else:
+            hprev, hlast = torch.ops.repro_torch.ssd_state_pass_fwd(
+                states, chunk_decay)
+        ctx.save_for_backward(chunk_decay, hprev)
+        ctx.set_materialize_grads(False)
+        return hprev, hlast
+
+    @staticmethod
+    def backward(ctx, dhprev, dhlast):
+        if dhprev is None and dhlast is None:
+            return None, None
+        chunk_decay, hprev = ctx.saved_tensors
+        grads = [None if g is None else g.contiguous()
+                 for g in (dhprev, dhlast)]
+        if _build.direct(chunk_decay, hprev,
+                         *(g for g in grads if g is not None)):
+            return _state_pass_bwd_kernel(chunk_decay, hprev, *grads)
+        return torch.ops.repro_torch.ssd_state_pass_bwd(chunk_decay, hprev,
+                                                        *grads)
+
+
+def ssd_state_pass(states: torch.Tensor, chunk_decay: torch.Tensor):
+    """Step 3 of :func:`ssd_scan_plain`: ``(hprev [b,c,h,p,n], hlast
+    [b,h,p,n])`` from ``states [b,c,h,p,n]`` and ``chunk_decay [b,c,h]``,
+    all float32.
+
+    A CUDA tensor goes through the hand-written kernels in
+    ``csrc/ssd_state_pass.cu`` (:class:`_StatePass`): one launch forward,
+    one in the backward, each adding one to ``ssd_state_pass.launches``;
+    ``hprev``, ``hlast`` and the states' gradient equal
+    :func:`ssd_state_pass_plain`'s bit for bit, and the decays' gradient
+    differs only by the order of its sum over ``p, n``.  On plain CUDA
+    tensors the kernels are called directly; on fake tensors, DTensors or
+    under a dispatch mode they go through the custom ops
+    ``repro_torch::ssd_state_pass_fwd`` and ``_bwd``.  Any other tensor
+    goes through :func:`ssd_state_pass_plain`."""
+    if states.device.type != "cuda":
+        return ssd_state_pass_plain(states, chunk_decay)
+    _check_state_pass(states, chunk_decay)
+    return _StatePass.apply(states.contiguous(), chunk_decay.contiguous())
+
+
+ssd_state_pass.launches = 0
+
+
 class _SSDScan(torch.autograd.Function):
     """B4 (its plain version on the CPU) forward; the backward is autograd
-    of :func:`ssd_scan_plain` recomputed from the saved inputs (the JAX
-    model's gradient is ``jax.grad`` through the jnp ``ssd_chunked``; no
-    Pallas backward exists).  An output the loss does not use (the final
+    of :func:`ssd_scan_plain` recomputed from the saved inputs, with
+    :func:`ssd_state_pass` as its recurrence over chunks (the JAX model's
+    gradient is ``jax.grad`` through the jnp ``ssd_chunked``; no Pallas
+    backward exists).  An output the loss does not use (the final
     state, in training) brings no gradient and is left out of it."""
 
     @staticmethod
@@ -262,7 +457,7 @@ class _SSDScan(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            y, state = ssd_scan_plain(*inputs, ctx.chunk)
+            y, state = _ssd_scan_body(*inputs, ctx.chunk, ssd_state_pass)
         outs = [(o, g) for o, g in ((y, dy), (state, dstate))
                 if g is not None]
         if not outs:
@@ -296,7 +491,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
     A CPU tensor goes through the plain version.  Where autograd records
     and an input requires grad, the call runs under :class:`_SSDScan`,
-    whose backward is plain PyTorch.  Each kernel launch adds one to
+    whose backward is plain PyTorch but for its recurrence over chunks
+    (:func:`ssd_state_pass`).  Each kernel launch adds one to
     ``ssd_scan.launches``.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, B, C)):

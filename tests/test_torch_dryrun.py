@@ -20,7 +20,9 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  unmasked_pairs)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_plain,
+                                          ssd_state_pass,
+                                          ssd_state_pass_plain)
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import perf
 from repro_torch.launch.costanalysis import CostMode, analyze
@@ -227,6 +229,55 @@ def test_custom_op_sharding_rules():
         assert list(y.placements) == hp
         assert list(st.placements) == [Shard(0), Shard(1)]
         assert tuple(st.to_local().shape) == (2, 1, 16, 8)
+
+
+@pytest.mark.parametrize("b,c,h,p,n", [(2, 128, 4, 64, 16), (1, 1, 3, 5, 3)])
+def test_state_pass_custom_ops_on_fake_cuda(b, c, h, p, n):
+    """Fake CUDA tensors reach ``repro_torch::ssd_state_pass_fwd`` through
+    ``ssd_state_pass`` and ``_bwd`` with and without each gradient: the
+    plain version's shapes and dtypes, no launch."""
+    g = torch.Generator().manual_seed(2)
+    states = torch.randn(b, c, h, p, n, generator=g)
+    decay = torch.rand(b, c, h, generator=g)
+    hprev, hlast = ssd_state_pass_plain(states, decay)
+    n0 = ssd_state_pass.launches
+    with FakeTensorMode():
+        fp, fl = ssd_state_pass(_cuda_like(states), _cuda_like(decay))
+        grads = [torch.ops.repro_torch.ssd_state_pass_bwd(
+            _cuda_like(decay), fp, dp, dl)
+            for dp, dl in ((fp, fl), (fp, None), (None, fl))]
+    assert ssd_state_pass.launches == n0
+    for got, want in ((fp, hprev), (fl, hlast)):
+        assert got.device.type == "cuda"
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    for ds, dd in grads:
+        assert (ds.shape, ds.dtype, ds.device.type) == (
+            states.shape, torch.float32, "cuda")
+        assert (dd.shape, dd.dtype) == (decay.shape, torch.float32)
+
+
+@pytest.mark.parametrize("split", ["batch", "heads"])
+def test_state_pass_sharding_rules(split):
+    """On a fake (4, 4) mesh both ops keep a batch shard (dim 0 of every
+    tensor) or a head shard (dim 2; ``hlast`` and its gradient on dim 1),
+    with either gradient missing."""
+    mesh = make_mesh((4, 4), ("data", "model"), device="cpu")
+    pl = [Shard(0), Replicate() if split == "batch" else Shard(2)]
+    last = [Shard(1) if p == Shard(2) else p for p in pl]
+    local_h = 4 // (4 if split == "heads" else 1)
+    with FakeTensorMode():
+        states = distribute_tensor(torch.empty(8, 5, 4, 2, 3), mesh, pl)
+        decay = distribute_tensor(torch.empty(8, 5, 4), mesh, pl)
+        hprev, hlast = torch.ops.repro_torch.ssd_state_pass_fwd(states, decay)
+        assert list(hprev.placements) == pl
+        assert list(hlast.placements) == last
+        assert tuple(hlast.to_local().shape) == (2, local_h, 2, 3)
+        dhlast = distribute_tensor(torch.empty(8, 4, 2, 3), mesh, last)
+        for dp, dl in ((hprev, dhlast), (hprev, None), (None, dhlast)):
+            ds, dd = torch.ops.repro_torch.ssd_state_pass_bwd(decay, hprev,
+                                                              dp, dl)
+            assert list(ds.placements) == pl and list(dd.placements) == pl
+            assert tuple(dd.to_local().shape) == (2, 5, local_h)
 
 
 def test_direct_launch_only_for_plain_unwatched_tensors():

@@ -27,7 +27,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.models import build_model
 from repro_torch.kernels.nbody import (nbody_forces_rows,
                                        nbody_forces_rows_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_plain,
+                                          ssd_state_pass,
+                                          ssd_state_pass_plain)
 from repro_torch.kernels.stencil5 import (halo_rows, wave_step_rows,
                                           wave_step_rows_plain)
 from repro_torch.runtime import ServeLoop, TrainLoop
@@ -489,25 +491,30 @@ def test_reduced_ssm_serve_loop_on_card_matches_cpu(cuda, arch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_state", [False, True])
 def test_ssd_gradients_on_card_match_plain(cuda, dtype, use_state):
-    """B4 under autograd (the kernel's forward, the plain backward) against
-    autograd through the plain version on the card: y within the kernel's
-    tolerance, the gradients equal within 1e-6 of the largest (the same
-    plain backward from the same inputs), one launch."""
+    """B4 under autograd (the kernel's forward; the plain backward, its
+    recurrence over chunks the two state-pass launches) against autograd
+    through the plain version on the card, which launches nothing: y within
+    the kernel's tolerance, the gradients equal within 1e-6 of the largest
+    (the same backward but for the order of the decays' gradient sums), one
+    B4 launch and two state-pass launches."""
     base = _ssd_inputs(2, 300, 4, 64, 128, dtype, cuda, seed=50)
     dy = _randn(2, 300, 4, 64, seed=54).to(cuda, dtype)
     dst = _randn(2, 4, 64, 128, seed=55).to(cuda)
-    outs = []
-    n0 = ssd_scan.launches
-    for fn in (ssd_scan, ssd_scan_plain):
+
+    def run(fn):
         ins = [t.detach().clone().requires_grad_() for t in base]
         y, st = fn(*ins, 64)
         loss = (y.float() * dy.float()).sum()
         if use_state:
             loss = loss + (st * dst).sum()
         loss.backward()
-        outs.append((y.detach(), [t.grad.float() for t in ins]))
-    assert ssd_scan.launches == n0 + 1
-    (y, grads), (ye, grads_e) = outs
+        return y.detach(), [t.grad.float() for t in ins]
+
+    n0, m0 = ssd_scan.launches, ssd_state_pass.launches
+    y, grads = run(ssd_scan)
+    assert (ssd_scan.launches, ssd_state_pass.launches) == (n0 + 1, m0 + 2)
+    ye, grads_e = run(ssd_scan_plain)
+    assert (ssd_scan.launches, ssd_state_pass.launches) == (n0 + 1, m0 + 2)
     x, a, B, C = base
     scale = ssd_scan_plain(x.float().abs(), a, B.float().abs(),
                            C.float().abs(), 64)[0]
@@ -517,6 +524,59 @@ def test_ssd_gradients_on_card_match_plain(cuda, dtype, use_state):
         assert (a - b).abs().max() <= 1e-6 * b.abs().max()
 
 
+# (b, c, h, p, n): one chunk, an odd count, p * n = 15 (no multiple of the
+# kernels' four-float vectors), 1,152 (no multiple of a block's 1,024),
+# 16,384 (two rounds of an 8-block cluster), 70 chunks (tiles of 32 and a
+# ragged last one), and granite's 128 chunks at a few heads
+STATE_PASS_SHAPES = [(2, 1, 3, 64, 128), (2, 7, 3, 64, 128),
+                     (2, 9, 3, 3, 5), (1, 33, 2, 48, 24),
+                     (1, 5, 2, 64, 256), (2, 70, 2, 16, 8),
+                     (2, 128, 4, 64, 128)]
+
+
+def _state_pass_grads(fn, states, decay, gp, gl):
+    s = states.clone().requires_grad_()
+    d = decay.clone().requires_grad_()
+    hprev, hlast = fn(s, d)
+    terms = []
+    if gp is not None:
+        terms.append((hprev * gp).sum())
+    if gl is not None:
+        terms.append((hlast * gl).sum())
+    sum(terms).backward()
+    return hprev.detach(), hlast.detach(), s.grad, d.grad
+
+
+# with one chunk hprev is the zero state: only hlast's gradient reaches the
+# inputs
+@pytest.mark.parametrize("b,c,h,p,n,grads", [
+    (*shape, grads) for shape in STATE_PASS_SHAPES
+    for grads in ("both", "hprev", "hlast")
+    if shape[1] > 1 or grads != "hprev"])
+def test_state_pass_kernels_match_plain(cuda, b, c, h, p, n, grads):
+    """The state-pass launches against ``ssd_state_pass_plain`` on the same
+    inputs on the card: ``hprev``, ``hlast`` and the states' gradient bit
+    for bit (each product and sum rounded as the plain loop rounds it), the
+    decays' within 1e-6 of its largest magnitude (a sum over p * n in
+    another order) and the same in two runs; two launches a forward and
+    backward."""
+    states = _randn(b, c, h, p, n, seed=60).to(cuda)
+    # decays in (0.5, 1]: the state neither dies nor grows far over c chunks
+    decay = (1 - 0.5 * torch.rand(b, c, h, generator=torch.Generator()
+                                  .manual_seed(61))).to(cuda)
+    gp = _randn(b, c, h, p, n, seed=62).to(cuda) if grads != "hlast" else None
+    gl = _randn(b, h, p, n, seed=63).to(cuda) if grads != "hprev" else None
+    n0 = ssd_state_pass.launches
+    got = _state_pass_grads(ssd_state_pass, states, decay, gp, gl)
+    assert ssd_state_pass.launches == n0 + 2
+    again = _state_pass_grads(ssd_state_pass, states, decay, gp, gl)
+    want = _state_pass_grads(ssd_state_pass_plain, states, decay, gp, gl)
+    assert ssd_state_pass.launches == n0 + 4
+    for name, a, e in zip(("hprev", "hlast", "dstates"), got, want):
+        assert torch.equal(a, e), name
+    dd, dd_e = got[3], want[3]
+    assert torch.equal(dd, again[3])
+    assert (dd - dd_e).abs().max() <= 1e-6 * dd_e.abs().max()
 # -- the rest of the model zoo: reduced models on the card against the CPU ---------------
 def _reduced_pair(arch, seed, **kw):
     cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
@@ -1180,7 +1240,8 @@ def test_dryrun_traces_kernels_without_launching(cuda, arch, kind):
     cfg = dataclasses.replace(get_config(arch, reduced=True),
                               flash_attention=True, dtype="bfloat16")
     spec = dict(seq_len=128, global_batch=4, kind=kind)
-    n0 = flash_attention.launches + ssd_scan.launches
+    n0 = (flash_attention.launches + ssd_scan.launches
+          + ssd_state_pass.launches)
     try:
         rec = lower_cell(arch, kind, cfg=cfg, device="cuda", spec=spec,
                          mesh=make_dev_mesh(2, 2, device="cuda"))
@@ -1190,7 +1251,8 @@ def test_dryrun_traces_kernels_without_launching(cuda, arch, kind):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    assert flash_attention.launches + ssd_scan.launches == n0
+    assert (flash_attention.launches + ssd_scan.launches
+            + ssd_state_pass.launches) == n0
     model = build_model(cfg).init(
         torch.Generator(device=cuda).manual_seed(0))
     batch = train_batch(cfg, 4, 128, device=cuda)
@@ -1204,7 +1266,8 @@ def test_dryrun_traces_kernels_without_launching(cuda, arch, kind):
         batch.pop("labels")
         with torch.no_grad(), FlopCounterMode(display=False) as fc:
             make_prefill_step(model, cfg, 128)(batch)
-    assert flash_attention.launches + ssd_scan.launches > n0
+    assert (flash_attention.launches + ssd_scan.launches
+            + ssd_state_pass.launches) > n0
     assert one["flops"] == fc.get_total_flops()
 
 
@@ -1318,13 +1381,15 @@ def test_granite_on_card_matches_reference(cuda):
         logits_scaling=cfg.logits_scaling, rms_norm_eps=cfg.norm_eps)
     ids = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
                         generator=torch.Generator(device=cuda).manual_seed(65))
-    n0 = (flash_attention.launches, ssd_scan.launches)
+    n0 = (flash_attention.launches, ssd_scan.launches,
+          ssd_state_pass.launches)
     model.requires_grad_(True)
     loss = model.loss({"tokens": ids, "labels": ids})
     loss.backward()
-    # remat: each kernel runs in the forward and again in the recompute
-    assert (flash_attention.launches - n0[0], ssd_scan.launches - n0[1]) \
-        == (2, 6)
+    # remat: each kernel runs in the forward and again in the recompute; the
+    # recurrence once forward and once backward in each Mamba2 layer
+    assert (flash_attention.launches - n0[0], ssd_scan.launches - n0[1],
+            ssd_state_pass.launches - n0[2]) == (2, 6, 6)
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

@@ -19,8 +19,10 @@ import torch
 from repro.kernels import ref
 from repro.kernels.ssd_scan import ssd_scan_tpu
 from repro.models import mamba2 as jax_mamba2
-from repro_torch.kernels.ssd_scan import (segsum, ssd_chunk_ref, ssd_scan,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (_ssd_scan_body, segsum,
+                                          ssd_chunk_ref, ssd_scan,
+                                          ssd_scan_plain, ssd_state_pass,
+                                          ssd_state_pass_plain)
 from torch_parity import keep_reference_ids  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -165,3 +167,87 @@ def test_argument_checks(case):
         args = [t[:, :0] for t in args]
     with pytest.raises(ValueError):
         ssd_scan(*args, chunk)
+
+
+# -- step 3, the recurrence over chunks ------------------------------------------
+def _per_slice_loop(states, chunk_decay):
+    """The recurrence as ``ssd_scan_plain`` wrote it before it had a function
+    of its own: one select of the states and of the decays per chunk."""
+    b, c, h, p, n = states.shape
+    hcur = torch.zeros((b, h, p, n), dtype=torch.float32)
+    hprevs = []
+    for ci in range(c):
+        hprevs.append(hcur)
+        hcur = chunk_decay[:, ci, :, None, None] * hcur + states[:, ci]
+    return torch.stack(hprevs, dim=1), hcur
+
+
+def _state_pass_run(fn, states, chunk_decay, final_grad, seed=9):
+    """``fn``'s outputs and the gradients of ``states`` and ``chunk_decay``
+    under a random cotangent of ``hprev`` and, with ``final_grad``, of
+    ``hlast``."""
+    s = states.clone().requires_grad_()
+    d = chunk_decay.clone().requires_grad_()
+    hprev, hlast = fn(s, d)
+    g = torch.Generator().manual_seed(seed)
+    loss = (hprev * torch.randn(hprev.shape, generator=g)).sum()
+    if final_grad:
+        loss = loss + (hlast * torch.randn(hlast.shape, generator=g)).sum()
+    if loss.requires_grad:      # one chunk: hprev is the zero state
+        loss.backward()
+    return hprev.detach(), hlast.detach(), s.grad, d.grad
+
+
+@pytest.mark.parametrize("final_grad", [False, True])
+@pytest.mark.parametrize("c", [1, 7, 16])
+def test_state_pass_plain_equals_per_slice_loop(c, final_grad):
+    """The unbound loop gives the per-slice loop's ``hprev``, ``hlast`` and
+    both gradients bit for bit: the backward adds the same terms (each
+    chunk's slice where there was a zero tensor of all the states, and
+    adding zeros is exact), and every sum of two gradients is commutative."""
+    g = torch.Generator().manual_seed(c)
+    states = torch.randn(2, c, 3, 4, 5, generator=g)
+    chunk_decay = torch.rand(2, c, 3, generator=g)
+    got = _state_pass_run(ssd_state_pass_plain, states, chunk_decay,
+                          final_grad)
+    want = _state_pass_run(_per_slice_loop, states, chunk_decay, final_grad)
+    for name, a, b in zip(("hprev", "hlast", "dstates", "ddecay"), got, want):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert (got[2] is None) == (c == 1 and not final_grad)
+
+
+@pytest.mark.parametrize("use_state", [False, True])
+@pytest.mark.parametrize("s,chunk", [(40, 64), (7 * 16, 16), (77, 16)])
+def test_scan_plain_and_gradients_equal_per_slice_loop(s, chunk, use_state):
+    """``ssd_scan_plain`` and its gradients on the CPU are what they were
+    with the per-slice loop, bit for bit: one chunk, an odd number of
+    chunks, and a ragged s."""
+    arrays = _inputs(2, s, 3, 8, 4, seed=11)
+    g = torch.Generator().manual_seed(12)
+    dy = torch.randn(2, s, 3, 8, generator=g)
+    dst = torch.randn(2, 3, 8, 4, generator=g)
+
+    def run(scan):
+        ins = [torch.from_numpy(v).requires_grad_() for v in arrays]
+        y, st = scan(*ins, chunk)
+        loss = (y * dy).sum()
+        if use_state:
+            loss = loss + (st * dst).sum()
+        loss.backward()
+        return [y.detach(), st.detach()] + [t.grad for t in ins]
+
+    got = run(ssd_scan_plain)
+    want = run(lambda *ins: _ssd_scan_body(*ins, _per_slice_loop))
+    for name, a, b in zip(("y", "state", "x", "a", "B", "C"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_state_pass_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    g = torch.Generator().manual_seed(13)
+    states = torch.randn(1, 5, 2, 3, 4, generator=g)
+    chunk_decay = torch.rand(1, 5, 2, generator=g)
+    n0 = ssd_state_pass.launches
+    got = ssd_state_pass(states, chunk_decay)
+    want = ssd_state_pass_plain(states, chunk_decay)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ssd_state_pass.launches == n0
