@@ -35,15 +35,13 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .allocation import PINNED_HOST, Allocation, is_device_memory
-from .backend import (Backend, InOrderQueue, WorkItem, clamp_to_ready,
-                      whole_card)
+from .backend import Backend, InOrderQueue, WorkItem
 from .buffer import AccessMode
 from .communicator import (Communicator, Payload, ReceiveArbiter,
                            nbytes_of)
@@ -83,8 +81,7 @@ def host_array(values) -> np.ndarray:
     t = values.detach()
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
-    with whole_card() if t.is_cuda else nullcontext():
-        return t.cpu().numpy()
+    return t.cpu().numpy()
 
 
 class BufferView:
@@ -126,13 +123,8 @@ class BufferView:
         self.array[sl] = self._tensor(values)
 
     def _tensor(self, values) -> torch.Tensor:
-        # a host value is copied to the card from pageable memory
-        host = self.array.is_cuda and not (
-            isinstance(values, torch.Tensor)
-            and values.device == self.array.device)
-        with whole_card() if host else nullcontext():
-            return torch.as_tensor(values, dtype=self.array.dtype,
-                                   device=self.array.device)
+        return torch.as_tensor(values, dtype=self.array.dtype,
+                               device=self.array.device)
 
     def _check(self, box: Box) -> None:
         if not self.check_bounds:
@@ -233,24 +225,17 @@ class Executor:
         self.device = device
         self._cuda = device.type == "cuda"
         self._ncards = torch.cuda.device_count() if self._cuda else 1
-        # the tracer's mode (None without one): under "spans" device lanes
-        # stamp launch and sync instead of timing on the card, and completed
-        # epochs keep their time
-        trace_mode = (None if tracer is None
-                      else getattr(tracer, "mode", "gated"))
-        self._stamped = trace_mode == "spans"
+        # with a tracer the lanes stamp each item's launch and sync, and
+        # completed epochs keep their time
+        self._stamped = tracer is not None
         self.backend = Backend(num_devices, device_of=self.device_of,
                                queues_per_device=queues_per_device,
-                               host_threads=host_threads, trace=trace_mode)
+                               host_threads=host_threads,
+                               stamped=self._stamped)
         self.store: dict[int, torch.Tensor] = {}     # allocation id -> tensor
         self.arbiter = ReceiveArbiter(node, comm, self.store)
         self.check_bounds = check_bounds
         self.tracer = tracer
-        # outcomes of the card gates of this executor's timed items: "held",
-        # "early" and "expired" (whose card intervals also hold host time),
-        # and "empty" for allocations, which queue no card work and are not
-        # gated (backend.CardGate.outcome)
-        self.card_gates = {"held": 0, "early": 0, "expired": 0, "empty": 0}
         # observability (DESIGN.md §11): wait-state attribution + issue-path
         # histograms.  ``_obs`` gates every added stamp/record so that a
         # bare executor (tracer=None, metrics=None) pays nothing.
@@ -300,7 +285,7 @@ class Executor:
         self._retired_count = 0
         self._issued_on: dict[int, InOrderQueue] = {} # iid -> queue (devices)
         self._completed_epochs: set[int] = set()      # command ids of epochs
-        self._epoch_done_t: dict[int, float] = {}     # spans-only tracer
+        self._epoch_done_t: dict[int, float] = {}     # with a tracer
         self.horizons_done = 0                        # completed sync instrs
         self.horizon_event = threading.Event()        # set on each completion
         self._epoch_cv = threading.Condition()
@@ -388,8 +373,8 @@ class Executor:
 
     def forget_epoch(self, cid: int) -> Optional[float]:
         """Drop a completed epoch id once every waiter has seen it; returns
-        the ``perf_counter`` time of its completion under a spans-only
-        tracer, else None.
+        the ``perf_counter`` time of its completion where the executor
+        traces, else None.
 
         A serving process completes an unbounded stream of epochs; the
         serving runtime calls this after its window handle resolves so the
@@ -786,8 +771,7 @@ class Executor:
         # with observability on, the lane thread stamps the dequeue time so
         # queue-wait (lane contention) separates from execution time
         fn = self._run_timed if self._obs else self._dispatch[it]
-        item = WorkItem(fn=fn, tag=instr, card_work=it not in (
-            InstructionType.ALLOC, InstructionType.FREE))
+        item = WorkItem(fn=fn, tag=instr)
         self._on_lanes += 1
         if instr.queue[0] == "device":
             q = self.backend.pick_device_queue(instr.queue[1], preferred=queue)
@@ -897,16 +881,10 @@ class Executor:
         wait plus the queue wait, so the per-instruction histograms sum to
         the measured latency by construction.
 
-        On a traced card's lane ``t_start``/``t_done`` are the card's
-        interval of the instruction's work (``backend.card_times``,
-        clamped); the host's interval, lane dequeue to this drain, goes to
-        the tracer beside them.  Host-pool and arbiter instructions, and
-        every instruction of an executor without a tracer, keep host
-        stamps.  Under a spans-only tracer a device lane's record also
-        carries the lane's launch and sync stamps.
+        Under a tracer a device lane's record also carries the lane's
+        launch and sync stamps.
         """
         t_done = time.perf_counter()
-        card = instr.__dict__.pop("_card_t", None)
         t_reg = getattr(instr, "_reg_t", None)
         if t_reg is None:
             return                       # submitted before this executor
@@ -914,10 +892,6 @@ class Executor:
         t_start = getattr(instr, "_start_t", t_ready)
         if t_start < t_ready:
             t_start = t_ready           # lane stamped before the drain raced
-        t_host_start, t_host_done = t_start, t_done
-        if card is not None:
-            t_start, t_done = clamp_to_ready(card[0], card[1], t_ready)
-            self.card_gates[card[2]] += 1
         cls = WAIT_OF.get(getattr(instr, "_blame_it", None), WAIT_DEP)
         if self.metrics is not None:
             pending = (t_ready - t_reg) * 1e6
@@ -942,13 +916,11 @@ class Executor:
                     # keep t_start <= t_launched <= t_synced <= t_done
                     launched = max(launched, t_start)
                     synced = max(synced, launched)
-                    t_done = t_host_done = max(t_done, synced)
+                    t_done = max(t_done, synced)
             self.tracer.record(
                 self.node, instr, lane, t_reg=t_reg, t_ready=t_ready,
                 t_start=t_start, t_done=t_done, wait_cls=cls,
                 blame_iid=getattr(instr, "_blame_iid", None),
-                t_host_start=t_host_start, t_host_done=t_host_done,
-                card_gate=card[2] if card is not None else None,
                 t_launched=launched, t_synced=synced)
 
     def _sample_lag(self) -> None:
@@ -1031,11 +1003,9 @@ class Executor:
             # to the free pool, which may precede this ALLOC's execution.
             arr = np.empty(a.box.shape, dtype=np.dtype(a.dtype))
         else:
-            pinned = self._cuda and a.mid == PINNED_HOST
-            with whole_card() if pinned else nullcontext():
-                arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
-                                  device=self._mem_device(a.mid),
-                                  pin_memory=pinned)
+            arr = torch.empty(a.box.shape, dtype=torch_dtype(a.dtype),
+                              device=self._mem_device(a.mid),
+                              pin_memory=self._cuda and a.mid == PINNED_HOST)
         self.store[a.aid] = arr
         self._account(a.mid, nbytes_of(arr))
 
@@ -1058,14 +1028,8 @@ class Executor:
                     zip(box.min, box.max, src.box.min))
         dsl = tuple(slice(a - o, b - o) for a, b, o in
                     zip(box.min, box.max, dst.box.min))
-        # asynchronous on the lane's stream; the lane waits for it.  From or
-        # to pageable memory the driver may wait for the card first
-        dst_view, src_view = darr[dsl], sarr[ssl]
-        pageable = (dst_view.is_cuda or src_view.is_cuda) and any(
-            t.device.type == "cpu" and not t.is_pinned()
-            for t in (dst_view, src_view))
-        with whole_card() if pageable else nullcontext():
-            dst_view.copy_(src_view, non_blocking=True)
+        # asynchronous on the lane's stream; the lane waits for it
+        darr[dsl].copy_(sarr[ssl], non_blocking=True)
 
     @staticmethod
     def _snapshot(view):

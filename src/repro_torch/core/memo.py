@@ -361,8 +361,8 @@ class WindowHandle:
 
     def wait(self, timeout: float = 60.0) -> None:
         """Block until the window has run on every node.  A tracer gets a
-        ``serve.wait`` span; under a spans-only tracer its meta
-        ``epoch_done`` is when the last node completed the window."""
+        ``serve.wait`` span whose meta ``epoch_done`` is when the last node
+        completed the window."""
         if self._done:
             return
         tr = self.tenant.srv.tracer

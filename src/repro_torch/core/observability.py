@@ -1,4 +1,4 @@
-# Copied from src/repro/core/observability.py; edited for card timing (InstrRecord).
+# Copied from src/repro/core/observability.py; edited for the lanes' stamps (InstrRecord).
 """Flight recorder: unified metrics + critical-path / wait-state attribution.
 
 The paper's claim is architectural — instruction-graph scheduling moves the
@@ -192,20 +192,9 @@ class InstrRecord:
     (``t_start - t_ready``).  ``blame_iid`` names the last-arriving
     predecessor (same-node iid) — the critical-path walk follows it.
 
-    ``t_host_start``/``t_host_done`` are the lane thread's host interval,
-    from dequeue to the executor's drain of the completion.  On a traced
-    card's lane ``card_gate`` is the outcome of the item's gate ("held",
-    "early", "expired", or "empty" for an item without card work;
-    ``backend.CardGate.outcome``) and
-    ``t_start``/``t_done`` are the card's interval of the instruction's work
-    (CUDA timing events around the gated item on the lane's stream; see
-    ``backend.py``); elsewhere ``card_gate`` is None and the two pairs are
-    equal.
-
-    A device lane of a spans-only tracer also gives ``t_launched`` (the
-    item has queued its work) and ``t_synced`` (the lane saw the work
-    finish): ``t_start <= t_launched <= t_synced <= t_done``.  Elsewhere
-    both are None.
+    A device lane also gives ``t_launched`` (the item has queued its work)
+    and ``t_synced`` (the lane saw the work finish): ``t_start <=
+    t_launched <= t_synced <= t_done``.  Elsewhere both are None.
     """
 
     node: int
@@ -221,15 +210,8 @@ class InstrRecord:
     blame_iid: Optional[int]
     tid: Optional[int]
     cid: Optional[int]
-    t_host_start: float
-    t_host_done: float
-    card_gate: Optional[str] = None
     t_launched: Optional[float] = None
     t_synced: Optional[float] = None
-
-    @property
-    def on_card(self) -> bool:
-        return self.card_gate is not None
 
 
 # -- lane utilization ---------------------------------------------------------

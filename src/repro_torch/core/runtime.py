@@ -198,18 +198,15 @@ class _NodeScheduler:
 
 
 def make_tracer(trace, **kw) -> Optional[Tracer]:
-    """The tracer of ``trace=``: ``False`` none; ``True`` one whose device
-    lanes time each item on the card behind a gate (mode ``"gated"``);
-    ``"spans"`` one that gates nothing and also records garbage
-    collections until the runtime's shutdown closes it."""
+    """The tracer of ``trace=``: ``False`` none; ``True`` (or its second
+    spelling ``"spans"``) one that also records garbage collections until
+    the runtime's shutdown closes it."""
     if trace not in (False, True, "spans"):
         raise ValueError(
             f"trace must be False, True or 'spans', got {trace!r}")
     if not trace:
         return None
-    if trace is True:
-        return Tracer(mode="gated", **kw)
-    tracer = Tracer(mode="spans", **kw)
+    tracer = Tracer(**kw)
     tracer.watch_gc()
     return tracer
 
@@ -490,7 +487,7 @@ class Runtime:
         """
         if self.tracer is None:
             raise RuntimeError(
-                "critical_path_report() needs Runtime(trace=True or 'spans')")
+                "critical_path_report() needs Runtime(trace=True)")
         return critical_path(self.tracer)
 
     def utilization_report(self) -> dict:
@@ -505,7 +502,7 @@ class Runtime:
         """
         if self.tracer is None:
             raise RuntimeError(
-                "utilization_report() needs Runtime(trace=True or 'spans')")
+                "utilization_report() needs Runtime(trace=True)")
         with self.tracer._lock:
             records = list(self.tracer.records)
         return lane_utilization(records)

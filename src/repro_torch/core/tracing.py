@@ -1,5 +1,5 @@
-# Copied from src/repro/core/tracing.py; edited for card timing (record,
-# lanes), the spans-only mode, garbage collections and the wall clock.
+# Copied from src/repro/core/tracing.py; edited for the lanes' launch and
+# sync stamps (record, lanes), garbage collections and the wall clock.
 """Per-instruction timeline capture — reproduces the paper's fig. 7 profiles.
 
 The tracer records timestamped spans for the three concurrent activities the
@@ -8,15 +8,13 @@ generation, and per-lane instruction execution.  ``overlap_fraction``
 quantifies how much scheduling work was hidden behind execution — the
 paper's headline qualitative claim for the concurrent architecture.
 
-Two modes.  ``"gated"`` (the default) times each device-lane item on the
-card behind a gate (``backend.CardGate``).  ``"spans"`` gates nothing:
-records keep host stamps, and a device lane also stamps when its item has
+Records keep host stamps, and a device lane also stamps when its item has
 launched and when the card has finished it, from which :meth:`Tracer.lanes`
 derives the lane thread's ``lane.queue``, ``lane.launch`` and ``lane.sync``
-spans and the executor's ``exec.wake``.  Both modes record the runtime's
-own spans (``sched.cdag``, ``sched.idag``, ``sched.throttle``,
-``serve.*``); a runtime's spans-mode tracer also records every garbage
-collection (``gc.gen0``-``gc.gen2`` on lane ``gc``, :meth:`Tracer.watch_gc`).
+spans and the executor's ``exec.wake``.  The tracer also records the
+runtime's own spans (``sched.cdag``, ``sched.idag``, ``sched.throttle``,
+``serve.*``), and a runtime's tracer every garbage collection
+(``gc.gen0``-``gc.gen2`` on lane ``gc``, :meth:`Tracer.watch_gc`).
 :meth:`Tracer.unix_us` puts a tracer time on the wall clock, which is the
 clock of ``torch.profiler``'s Chrome trace.
 """
@@ -59,17 +57,8 @@ class Tracer:
     # the least time between two anchors of the wall clock (anchor())
     ANCHOR_GAP_S = 0.1
 
-    MODES = ("gated", "spans")
-
-    def __init__(self, *, record_sample: int = 1,
-                 mode: str = "gated") -> None:
-        if mode not in self.MODES:
-            raise ValueError(f"mode must be one of {self.MODES}, got {mode!r}")
+    def __init__(self, *, record_sample: int = 1) -> None:
         self._lock = threading.Lock()
-        # how device lanes feed the records (see the module docstring):
-        # "gated" times each item on the card, "spans" stamps launch and
-        # sync on the host; executors and backends read it once
-        self.mode = mode
         # 1-in-N InstrRecord capture: with ``record_sample=N > 1`` only every
         # Nth completion is recorded, cutting traced issue overhead at the
         # cost of honestly widened gaps in the critical-path report (the
@@ -195,18 +184,15 @@ class Tracer:
 
     def record(self, node: int, instr, lane: str, *, t_reg: float,
                t_ready: float, t_start: float, t_done: float,
-               wait_cls: str, blame_iid: Optional[int], t_host_start: float,
-               t_host_done: float, card_gate: Optional[str] = None,
+               wait_cls: str, blame_iid: Optional[int],
                t_launched: Optional[float] = None,
                t_synced: Optional[float] = None) -> None:
         """Append one instruction's full timing record (raw perf_counter
         stamps; converted to tracer-epoch time here).  Replaces the
         issue/complete pair on the executor's hot path: one lock, one
-        append, and the fig.-7 execution span is derived lazily.  The
-        ``t_host_*`` stamps are the lane thread's interval; with a
-        ``card_gate`` outcome ``t_start``/``t_done`` are the card's.  A
-        device lane in spans-only mode gives ``t_launched`` (its item has
-        returned) and ``t_synced`` (the card has finished the item)."""
+        append, and the fig.-7 execution span is derived lazily.  A
+        device lane gives ``t_launched`` (its item has returned) and
+        ``t_synced`` (the card has finished the item)."""
         rs = self.record_sample
         if rs > 1 and instr.iid % rs:
             # the keep/drop decision is a pure function of the iid so the
@@ -227,7 +213,6 @@ class Tracer:
             wait_cls, blame_iid,
             task.tid if task is not None else None,
             cmd.cid if cmd is not None else None,
-            t_host_start - e, t_host_done - e, card_gate,
             None if t_launched is None else t_launched - e,
             None if t_synced is None else t_synced - e)
         with self._lock:
@@ -250,12 +235,6 @@ class Tracer:
             out[s.lane].append(s)
         for r in records:
             meta = {"iid": r.iid, "node": r.node, "tid": r.tid, "cid": r.cid}
-            if r.on_card:
-                # a card's lane: the span is the card's interval; the lane
-                # thread's host interval rides along in the event's args
-                meta["host_ts_us"] = r.t_host_start * 1e6
-                meta["host_dur_us"] = (r.t_host_done - r.t_host_start) * 1e6
-                meta["card_gate"] = r.card_gate
             out[r.lane].append(Span(r.lane, r.kind, r.name, r.t_start,
                                     r.t_done, meta))
             if r.t_synced is not None:

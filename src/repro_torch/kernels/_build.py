@@ -25,14 +25,13 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nbody.cu", "stencil5.cu", "flash_attention.cu", "ssd_scan.cu",
-           "ssd_state_pass.cu", "card_gate.cu", "errors.cu")
+           "ssd_state_pass.cu", "errors.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CFLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIBNAME = "librepro_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "repro_nbody_rows_f32": [_P, _P, _I, _I, _I, _F, _P],
     "repro_nbody_rows_f64": [_P, _P, _I, _I, _I, _F, _P],
@@ -46,7 +45,6 @@ _SIGNATURES = {
     "repro_ssd_scan_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_ssd_state_pass_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_ssd_state_pass_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_card_gate": [_P, _I, _U64, _P],
 }
 
 _lock = threading.Lock()

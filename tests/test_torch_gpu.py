@@ -248,34 +248,12 @@ def test_flash_gradients_at_model_shapes_match_einsum(cuda, dtype, S, T, K,
         assert (a - b).abs().max() <= FLASH_GRAD_TOL[dtype] * b.abs().max()
 
 
-def test_records_carry_card_time(cuda):
-    """A device lane's record is the card's interval inside the host's: a
-    kernel that sleeps on the card for about 2 ms lasts that long in its
-    record, and the lane's host interval brackets it."""
-    with Runtime(1, 1, trace=True, device="cuda") as rt:
-        X = rt.buffer((4,), init=np.zeros(4), name="X")
-
-        def spin(chunk, xv):
-            torch.cuda._sleep(2_000_000)
-            xv.set(chunk, xv.get(chunk) + 1)
-
-        for i in range(3):
-            rt.submit(f"spin{i}", (4,), [read_write(X, one_to_one())], spin)
-        rt.sync()
-        recs = [r for r in rt.tracer.records if r.kind == "device_kernel"]
-    assert len(recs) == 3
-    for r in recs:
-        assert r.t_ready <= r.t_start <= r.t_done
-        assert r.t_host_start - 2e-4 <= r.t_start
-        assert r.t_done <= r.t_host_done + 2e-4
-        assert r.t_done - r.t_start > 1e-4
-
-
-def test_spans_mode_stamps_launch_and_sync_without_gates(cuda):
-    """``trace="spans"`` gates and times nothing on the card: a kernel that
+@pytest.mark.parametrize("trace", [True, "spans"])
+def test_spans_mode_stamps_launch_and_sync_without_gates(cuda, trace):
+    """A traced runtime gates and times nothing on the card: a kernel that
     sleeps about 5 ms on the card returns from its launch at once, and its
     lane waits for it in ``lane.sync``."""
-    with Runtime(1, 1, trace="spans", device="cuda") as rt:
+    with Runtime(1, 1, trace=trace, device="cuda") as rt:
         X = rt.buffer((4,), init=np.zeros(4), name="X")
 
         def spin(chunk, xv):
@@ -286,65 +264,17 @@ def test_spans_mode_stamps_launch_and_sync_without_gates(cuda):
             rt.submit(f"spin{i}", (4,), [read_write(X, one_to_one())], spin)
         out = rt.gather(X)
         ex = rt.executors[0]
-        assert ex.backend.clock is None
         assert all(q._work == q._run_stamped
                    for qs in ex.backend.device_queues for q in qs)
-        assert sum(ex.card_gates.values()) == 0
         recs = [r for r in rt.tracer.records if r.kind == "device_kernel"]
     np.testing.assert_array_equal(out, np.full(4, 3.0))
     assert len(recs) == 3
     for r in recs:
-        assert not r.on_card
         assert (r.t_ready <= r.t_start <= r.t_launched <= r.t_synced
                 <= r.t_done)
         assert r.t_synced - r.t_launched > 2e-3
     last = recs[-1]
     assert last.t_launched - last.t_start < last.t_synced - last.t_launched
-
-
-def test_card_records_leave_host_time_out(cuda):
-    """The gate holds the lane's stream until the item has queued all of
-    its work: an item that sleeps 20 ms on the host between two small card
-    operations lasts microseconds on the card and over 20 ms on the host."""
-    import time
-    with Runtime(1, 1, trace=True, device="cuda") as rt:
-        X = rt.buffer((1024,), init=np.zeros(1024), name="X")
-
-        def slow_host(chunk, xv):
-            y = xv.get(chunk) + 1
-            time.sleep(0.02)
-            xv.set(chunk, y * 2)
-
-        for i in range(3):
-            rt.submit(f"slow{i}", (1024,), [read_write(X, one_to_one())],
-                      slow_host)
-        out = rt.gather(X)
-        recs = [r for r in rt.tracer.records if r.kind == "device_kernel"
-                and r.name.startswith("slow")]
-        gates = rt.executors[0].card_gates
-    np.testing.assert_array_equal(out, np.full(1024, 14.0))
-    assert len(recs) == 3 and gates["expired"] == 0 and gates["held"] >= 3
-    for r in recs:
-        assert r.on_card
-        assert r.t_host_done - r.t_host_start >= 0.02
-        assert r.t_done - r.t_start < 2e-3
-
-
-def test_card_gate_gives_up_on_an_item_that_waits_for_its_stream(cuda):
-    """An item that synchronises with its own stream before the gate opens
-    is delayed by the gate's timeout, not hung, and is counted."""
-    with Runtime(1, 1, trace=True, device="cuda") as rt:
-        X = rt.buffer((8,), init=np.zeros(8), name="X")
-
-        def syncs(chunk, xv):
-            xv.set(chunk, xv.get(chunk) + 1)
-            torch.cuda.current_stream().synchronize()
-
-        rt.submit("syncs", (8,), [read_write(X, one_to_one())], syncs)
-        out = rt.gather(X)
-        gates = rt.executors[0].card_gates
-    np.testing.assert_array_equal(out, np.ones(8))
-    assert gates["expired"] == 1
 
 
 def test_train_loop_on_card_matches_cpu(cuda):

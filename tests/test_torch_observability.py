@@ -1,18 +1,15 @@
 """Observability of the torch port: the runtime-driving cases of
 ``tests/test_observability.py`` and ``tests/test_tracing.py`` on the port's
 ``Runtime(device="cpu")`` with the same invariants, the same programs on
-both runtimes giving records of the same instructions, and the card-time
-conversion and clamps (``core.backend.card_times``, ``clamp_to_ready``)
-driven with stub events, and the card gate's bookkeeping (``CardGate``)
-with a stub launch.
+both runtimes giving records of the same instructions, and the lanes'
+launch and sync stamps with the spans derived from them.
 
-On the card a device lane's record carries the card's interval and the
-host's beside it (``tests/test_torch_gpu.py``, ``chip_smoke.py`` ``trace``);
-on the CPU the two coincide.
+On the card a device lane's launch and sync stamps bracket the card's work
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` ``trace``); on the CPU a
+lane without a stream stamps both at once.
 """
 
 import json
-import threading
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,8 +20,6 @@ from repro_torch.core import (Runtime, Tracer, critical_path, one_to_one,
                               read, read_write, reduction)
 import repro_torch.core as port_core
 from repro_torch.core import backend
-from repro_torch.core.backend import (CardClock, CardGate, card_times,
-                                      clamp_to_ready, whole_card)
 from repro_torch.core.instructions import InstructionType
 from repro_torch.core.observability import (WAIT_CLASSES, InstrRecord,
                                             lane_utilization)
@@ -73,171 +68,21 @@ def traced():
     rt.shutdown()
 
 
-# -- the card clock, with stub events ------------------------------------------
-class _Ev:
-    """A timing event completed at ``ms`` on the card's clock."""
-
-    def __init__(self, ms):
-        self.ms = ms
-
-    def elapsed_time(self, other):
-        return other.ms - self.ms
-
-
-@pytest.mark.parametrize("anchor_ms,start_ms,end_ms,t_ready,expect", [
-    # the anchor completed at host time 10 s: card ms 5 -> 10 s
-    (5.0, 7.0, 9.5, 10.0, (10.002, 10.0045)),
-    # ready after the card's start (the anchor's error): start clamped
-    (5.0, 7.0, 9.5, 10.003, (10.003, 10.0045)),
-    # ready after the card's end: both clamped to t_ready
-    (5.0, 7.0, 9.5, 10.01, (10.01, 10.01)),
-    # an empty item: zero duration
-    (0.0, 3.0, 3.0, 9.0, (10.003, 10.003)),
-])
-def test_card_times_convert_and_clamp(anchor_ms, start_ms, end_ms, t_ready,
-                                     expect):
-    t0, t1 = clamp_to_ready(*card_times(_Ev(anchor_ms), 10.0, _Ev(start_ms),
-                                        _Ev(end_ms)), t_ready)
-    assert t0 == pytest.approx(expect[0], abs=1e-12)
-    assert t1 == pytest.approx(expect[1], abs=1e-12)
-    assert t_ready <= t0 <= t1
-
-
-def test_card_times_leave_out_the_record_floor():
-    """The card's record floor moves the start later, never past the end:
-    an item at the floor lasts nothing."""
-    t0, t1 = card_times(_Ev(5.0), 10.0, _Ev(7.0), _Ev(9.5), floor=3e-6)
-    assert (t0, t1) == (pytest.approx(10.002003, abs=1e-12),
-                        pytest.approx(10.0045, abs=1e-12))
-    t0, t1 = card_times(_Ev(5.0), 10.0, _Ev(7.0), _Ev(7.002), floor=3e-6)
-    assert t0 == t1 == pytest.approx(10.002002, abs=1e-12)
-
-
-def test_card_times_duration_comes_from_the_events():
-    """The duration is end - start of the two events, whatever the anchor:
-    an anchor an hour back changes where the interval sits, not its
-    length."""
-    t0, t1 = card_times(_Ev(-3.6e6), 0.0, _Ev(1.0), _Ev(1.25))
-    assert t1 - t0 == pytest.approx(0.25e-3, abs=1e-12)
-
-
-def test_card_clock_ignores_host_devices():
-    import torch
-    clock = CardClock([torch.device("cpu")] * 3)
-    assert clock._anchors == {}
-
-
 def test_bare_executor_creates_no_timing():
-    """A bare executor (no tracer, no metrics) has no clock and untimed
-    lanes, and so has one with metrics alone; a traced one on the CPU has
-    lanes without streams, which time nothing either."""
-    for kw in (dict(metrics=False), dict()):
+    """A bare executor (no tracer, no metrics) has plain lanes and no
+    clock, and so has one with metrics alone; a traced one on the CPU has
+    lanes without streams, which stamp on the host and time nothing on a
+    card either."""
+    for kw in (dict(metrics=False), dict(), dict(trace=True)):
         with Runtime(1, 2, device="cpu", **kw) as rt:
             ex = rt.executors[0]
-            assert ex._obs is (kw == {}) and ex.backend.clock is None
-            assert all(q.clock is None for qs in ex.backend.device_queues
-                       for q in qs)
-    with Runtime(1, 2, trace=True, device="cpu") as rt:
-        ex = rt.executors[0]
-        assert ex.backend.clock is not None
-        assert all(q.clock is None for qs in ex.backend.device_queues
-                   for q in qs)
-
-
-# -- the card gate, with a stub launch -------------------------------------------
-def _stub_gate():
-    launches = []
-    words = np.zeros(2, dtype=np.int32)
-    gate = CardGate(words, 0xbeef,
-                    lambda ptr, item, timeout_ns, stream:
-                    launches.append((ptr, item, timeout_ns, stream)))
-    return gate, words, launches
-
-
-def test_card_gate_opens_the_item_it_closed():
-    gate, words, launches = _stub_gate()
-    for item in (1, 2, 3):
-        gate.close(stream=7)
-        assert launches[-1] == (0xbeef, item,
-                                int(backend.GATE_TIMEOUT_S * 1e9), 7)
-        assert words[0] == item - 1          # the kernel would still wait
-        gate.open()
-        assert words[0] == item and gate.outcome == "held"
-    gate.open()                              # a second open changes nothing
-    assert words[0] == 3 and gate.outcome == "held"
-
-
-def test_card_gate_reports_its_outcome():
-    gate, words, _ = _stub_gate()
-    gate.close(stream=0)
-    backend._lane.gate = gate
-    try:
-        with whole_card():                    # the item waits for the card
-            pass
-    finally:
-        backend._lane.gate = None
-    gate.open()
-    assert words[0] == 1 and gate.outcome == "early"
-    gate.close(stream=0)
-    words[1] = gate.item                      # the kernel gave up waiting
-    gate.open()
-    assert gate.outcome == "expired"
-    gate.close(stream=0)
-    gate.open()
-    assert gate.outcome == "held"
-    with whole_card():                        # off a timed lane: no gate
-        pass
-    assert gate.outcome == "held"
-
-
-def test_whole_card_call_waits_for_closed_gates():
-    """A call that waits for the whole card (a pinned allocation) starts
-    only once every closed gate has opened, and no gate closes
-    meanwhile."""
-    gate, _, _ = _stub_gate()
-    gate.close(stream=0)
-    entered, leave = threading.Event(), threading.Event()
-
-    def alloc():
-        with whole_card():
-            entered.set()
-            leave.wait(5)
-
-    t = threading.Thread(target=alloc)
-    t.start()
-    assert not entered.wait(0.05)
-    gate.open()
-    assert entered.wait(5) and gate.outcome == "held"
-    closer = threading.Thread(target=gate.close, kwargs={"stream": 0})
-    closer.start()
-    closer.join(0.05)
-    assert closer.is_alive()                  # waits for the allocation
-    leave.set()
-    t.join(5)
-    closer.join(5)
-    assert not closer.is_alive()
-    gate.open()
-
-
-def test_whole_card_call_on_a_lane_opens_its_own_gate_first():
-    gate, words, _ = _stub_gate()
-    gate.close(stream=0)
-    backend._lane.gate = gate
-    try:
-        with whole_card():
-            pass
-    finally:
-        backend._lane.gate = None
-    assert words[0] == gate.item and gate.outcome == "early"
-
-
-def test_card_gate_item_numbers_wrap():
-    gate, words, launches = _stub_gate()
-    gate.item = 2**31 - 1
-    gate.close(stream=0)
-    assert launches[-1][1] == -2**31
-    gate.open()
-    assert words[0] == -2**31 and gate.outcome == "held"
+            assert ex._obs is (kw != dict(metrics=False))
+            assert not hasattr(ex.backend, "clock")
+            for qs in ex.backend.device_queues:
+                for q in qs:
+                    assert q.stream is None and not hasattr(q, "clock")
+                    assert q._work == (q._run_stamped_host if "trace" in kw
+                                       else q._run_host)
 
 
 # -- records ---------------------------------------------------------------------
@@ -252,9 +97,9 @@ def test_records_wait_sum_is_exact(traced):
         parts = (r.t_ready - r.t_reg) + (r.t_start - r.t_ready)
         assert abs(parts - lat) <= 1e-9 + 0.01 * max(lat, 1e-12)
         assert r.wait_cls in WAIT_CLASSES
-        # on the CPU a lane's host interval is its record's interval
-        assert (r.t_host_start, r.t_host_done) == (r.t_start, r.t_done)
-        assert not r.on_card
+        if r.t_synced is not None:
+            # on the CPU a device lane stamps launch and sync at once
+            assert r.t_start <= r.t_launched == r.t_synced <= r.t_done
 
 
 def test_records_carry_trace_context(traced):
@@ -356,36 +201,6 @@ def test_runtime_metrics_disabled_still_works():
 def _fake_instr(iid):
     return SimpleNamespace(iid=iid, name=f"i{iid}", queue=("device", 0),
                            itype=InstructionType.DEVICE_KERNEL, command=None)
-
-
-def test_card_record_exports_card_span_and_host_args(tmp_path):
-    """A device lane's execution event is the card's interval; the host
-    interval is in its args.  Tracks and names are the reference's."""
-    tr = Tracer()
-    e = tr.epoch
-    tr.record(0, _fake_instr(1), "N0.device.0", t_reg=e + 1e-3,
-              t_ready=e + 2e-3, t_start=e + 4e-3, t_done=e + 6e-3,
-              wait_cls="dep", blame_iid=None, t_host_start=e + 3e-3,
-              t_host_done=e + 7e-3, card_gate="held")
-    tr.record(0, _fake_instr(2), "N0.device.0", t_reg=e + 1e-3,
-              t_ready=e + 2e-3, t_start=e + 7e-3, t_done=e + 8e-3,
-              wait_cls="dep", blame_iid=None, t_host_start=e + 7e-3,
-              t_host_done=e + 8e-3)
-    r1, r2 = tr.records
-    assert (r1.t_host_start, r1.t_host_done) == pytest.approx((3e-3, 7e-3))
-    assert (r2.t_host_start, r2.t_host_done) == (r2.t_start, r2.t_done)
-    assert r1.on_card and not r2.on_card
-    out = tmp_path / "t.json"
-    tr.to_chrome_trace(out)
-    events = json.loads(out.read_text())["traceEvents"]
-    names = {e["args"]["name"] for e in events if e["ph"] == "M"}
-    assert names == {"N0.device.0"}
-    xs = {e["args"]["iid"]: e for e in events if e["ph"] == "X"}
-    assert xs[1]["ts"] == pytest.approx(4e3) and xs[1]["dur"] == pytest.approx(2e3)
-    assert xs[1]["args"]["host_ts_us"] == pytest.approx(3e3)
-    assert xs[1]["args"]["host_dur_us"] == pytest.approx(4e3)
-    assert xs[1]["args"]["card_gate"] == "held"
-    assert "host_ts_us" not in xs[2]["args"]
 
 
 def test_chrome_trace_from_live_runtime(tmp_path):
@@ -511,15 +326,17 @@ def test_sampled_trace_still_analyzable():
 
 
 def test_instr_record_defaults_host_interval():
-    """The host interval is always given; a record is a card record only
-    where the executor says so."""
+    """A record's interval is ``t_start``/``t_done``: it has no second,
+    host pair and no gate, and the lane stamps default to None."""
     r = InstrRecord(0, 1, "device_kernel", "N0.device.0", "k", 0.0, 0.1, 0.2,
-                    0.3, "dep", None, None, None, 0.2, 0.3)
-    assert (r.t_host_start, r.t_host_done) == (0.2, 0.3)
-    assert r.card_gate is None and r.on_card is False
+                    0.3, "dep", None, None, None)
+    assert (r.t_start, r.t_done) == (0.2, 0.3)
+    assert r.t_launched is None and r.t_synced is None
+    for gone in ("t_host_start", "t_host_done", "card_gate", "on_card"):
+        assert not hasattr(r, gone), gone
     with pytest.raises(TypeError):
         InstrRecord(0, 1, "device_kernel", "N0.device.0", "k", 0.0, 0.1, 0.2,
-                    0.3, "dep", None, None, None)
+                    0.3, "dep", None, None, None, 0.2, 0.3, None)
 
 
 # -- spans-only tracing ------------------------------------------------------------
@@ -548,28 +365,33 @@ def _kinds(tracer):
 
 
 def test_spans_mode_creates_no_gate_and_no_timing_events():
-    with Runtime(1, 2, trace="spans", device="cpu") as rt:
-        assert rt.tracer.mode == "spans"
-        ex = rt.executors[0]
-        assert ex.backend.clock is None
-        for qs in ex.backend.device_queues:
-            for q in qs:
-                assert q.clock is None and not hasattr(q, "_gate")
-                assert not hasattr(q, "_start") and not hasattr(q, "_done")
-                assert q._work == q._run_stamped_host
+    """A traced runtime's lanes stamp on the host: no gate, no timing
+    event, no clock, and neither the tracer nor the lanes take a mode."""
+    for trace in (True, "spans"):
+        with Runtime(1, 2, trace=trace, device="cpu") as rt:
+            assert type(rt.tracer) is Tracer
+            assert not hasattr(rt.tracer, "mode")
+            ex = rt.executors[0]
+            assert not hasattr(ex.backend, "clock")
+            for qs in ex.backend.device_queues:
+                for q in qs:
+                    assert not hasattr(q, "_gate")
+                    assert not hasattr(q, "_start") and not hasattr(q, "_done")
+                    assert q._work == q._run_stamped_host
     sink = backend.CompletionSink()
-    q = backend.InOrderQueue("D0.q0", sink, stream=object(), mode="spans")
+    q = backend.InOrderQueue("D0.q0", sink, stream=object(), stamped=True)
     try:
-        assert q._work == q._run_stamped and q.clock is None
+        assert q._work == q._run_stamped
         assert not hasattr(q, "_gate") and not hasattr(q, "_start")
     finally:
         q.shutdown()
-    assert backend.Backend(1, device_of=lambda d: __import__("torch").device(
-        "cpu"), trace="spans").clock is None
-    with pytest.raises(ValueError):
-        backend.InOrderQueue("D0.q0", sink, mode="timed")
-    with pytest.raises(ValueError):
-        Tracer(mode="timed")
+    assert not hasattr(backend.Backend(
+        1, device_of=lambda d: __import__("torch").device("cpu"),
+        stamped=True), "clock")
+    with pytest.raises(TypeError):
+        backend.InOrderQueue("D0.q0", sink, mode="spans")
+    with pytest.raises(TypeError):
+        Tracer(mode="spans")
 
 
 def test_trace_modes_choose_their_lane_path_once():
@@ -577,19 +399,21 @@ def test_trace_modes_choose_their_lane_path_once():
     for trace in (False, True, "spans"):
         with Runtime(1, 1, trace=trace, device="cpu") as rt:
             paths[trace] = rt.executors[0].backend.device_queues[0][0]._work
-    assert paths[False].__name__ == paths[True].__name__ == "_run_host"
-    assert paths["spans"].__name__ == "_run_stamped_host"
-    with pytest.raises(ValueError):
-        Runtime(1, 1, trace="gated", device="cpu")
+    assert paths[False].__name__ == "_run_host"
+    assert paths[True].__name__ == paths["spans"].__name__ == \
+        "_run_stamped_host"
+    for bad in ("gated", "timed"):
+        with pytest.raises(ValueError):
+            Runtime(1, 1, trace=bad, device="cpu")
 
 
-def test_spans_records_keep_their_stamps_in_order():
-    with _spans_program(Runtime(2, 2, trace="spans", device="cpu")) as rt:
+@pytest.mark.parametrize("trace", [True, "spans"])
+def test_spans_records_keep_their_stamps_in_order(trace):
+    with _spans_program(Runtime(2, 2, trace=trace, device="cpu")) as rt:
         tr = rt.tracer
     stamped = [r for r in tr.records if r.t_synced is not None]
     assert stamped and {r.node for r in stamped} == {0, 1}
     for r in tr.records:
-        assert not r.on_card
         if ".device." in r.lane or r.lane.split(".")[1] == "device":
             assert r.t_launched is not None, r
         if r.t_synced is None:
@@ -604,12 +428,6 @@ def test_spans_records_keep_their_stamps_in_order():
     util = rt.utilization_report()
     assert util["span_us"] > 0
     assert 0.0 <= rt.critical_path_report().scheduler_fraction <= 1.0
-
-
-def test_gated_records_have_no_lane_stamps(traced):
-    assert all(r.t_launched is None and r.t_synced is None
-               for r in traced.tracer.records)
-    assert "lane.launch" not in _kinds(traced.tracer)
 
 
 def test_throttle_has_its_own_span_outside_the_lowering_span():
@@ -640,22 +458,21 @@ def test_throttle_has_its_own_span_outside_the_lowering_span():
 def test_gc_collections_are_spans_until_shutdown():
     import gc
     n = len(gc.callbacks)
-    rt = Runtime(1, 1, trace="spans", device="cpu")
-    assert len(gc.callbacks) == n + 1
-    gc.collect()
-    spans = [s for s in rt.tracer.lanes().get("gc", [])
-             if s.kind == "gc.gen2"]
-    assert spans and spans[-1].t0 <= spans[-1].t1
-    assert spans[-1].meta["collected"] >= 0
-    rt.shutdown()
-    assert len(gc.callbacks) == n
-    before = len(rt.tracer.spans)
-    gc.collect()
-    assert len(rt.tracer.spans) == before
+    for trace in (True, "spans"):
+        rt = Runtime(1, 1, trace=trace, device="cpu")
+        assert len(gc.callbacks) == n + 1
+        gc.collect()
+        spans = [s for s in rt.tracer.lanes().get("gc", [])
+                 if s.kind == "gc.gen2"]
+        assert spans and spans[-1].t0 <= spans[-1].t1
+        assert spans[-1].meta["collected"] >= 0
+        rt.shutdown()
+        assert len(gc.callbacks) == n
+        before = len(rt.tracer.spans)
+        gc.collect()
+        assert len(rt.tracer.spans) == before
     with Runtime(1, 1, device="cpu"):
         assert len(gc.callbacks) == n            # no tracer, no hook
-    with Runtime(1, 1, trace=True, device="cpu"):
-        assert len(gc.callbacks) == n            # nor a gated one
     Tracer()
     assert len(gc.callbacks) == n                # nor a bare tracer
 
